@@ -1,0 +1,19 @@
+"""Granite-3.0-2B [hf:ibm-granite/granite-3.0-2b-base] — dense GQA.
+
+40L d_model=2048 32H (kv=8) d_ff=8192 vocab=49155.
+"""
+from repro_torch.config import ModelConfig, reduced
+
+CONFIG = ModelConfig(
+    name="granite-3-2b",
+    family="dense",
+    source="hf:ibm-granite/granite-3.0-2b-base",
+    num_layers=40,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=8192,
+    vocab_size=49155,
+    tie_embeddings=True,
+)
+SMOKE = reduced(CONFIG)

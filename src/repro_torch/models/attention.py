@@ -1,0 +1,122 @@
+"""GQA attention layer (port of ``repro.models.attention``): full-sequence
+and single-token-decode paths, self-attention.
+
+Cache layout per attention layer:
+  ``k``/``v``: (B, S_cache, H_kv, head_dim).  For sliding-window archs the
+  cache is a **ring buffer** of ``S_cache == window`` slots; for full
+  attention ``S_cache == max_seq``.
+Keys are stored *post-RoPE* so decode never re-rotates the cache.
+Cross-attention (encoder-decoder) comes with the encoder slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg, *, device, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        pdt = cfg.param_dtype
+        self.wq = layers.dense_init(gen, d, h * hd, pdt, device=device)
+        self.wk = layers.dense_init(gen, d, hkv * hd, pdt, device=device)
+        self.wv = layers.dense_init(gen, d, hkv * hd, pdt, device=device)
+        self.wo = layers.dense_init(gen, h * hd, d, pdt, scale=(h * hd) ** -0.5,
+                                    device=device)
+        if cfg.qkv_bias:
+            self.bq = layers.zeros_init(h * hd, pdt, device=device)
+            self.bk = layers.zeros_init(hkv * hd, pdt, device=device)
+            self.bv = layers.zeros_init(hkv * hd, pdt, device=device)
+
+
+def _proj_qkv(p: Attention, x, h, hkv, hd):
+    b = x.shape[0]
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if hasattr(p, "bq"):
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    return (q.reshape(b, -1, h, hd), k.reshape(b, -1, hkv, hd),
+            v.reshape(b, -1, hkv, hd))
+
+
+def full_attention(p: Attention, x, cfg, *, q_pos, causal=True, window=None,
+                   use_rope=True, impl=None, return_kv=False):
+    """Full-sequence self-attention (prefill).
+
+    x: (B, Sq, d); q_pos: (Sq,) absolute positions of the queries (= keys).
+    """
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    hd = p.wq.shape[1] // h
+    q, k, v = _proj_qkv(p, x, h, hkv, hd)
+    if use_rope:
+        cos, sin = layers.rope_cos_sin(q_pos, hd, cfg.rope_theta)
+        q = layers.apply_rope(q, cos[None], sin[None])
+        k = layers.apply_rope(k, cos[None], sin[None])
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_pos=q_pos, kv_pos=q_pos,
+                              impl=impl or cfg.attention_impl)
+    b, sq = x.shape[0], x.shape[1]
+    y = out.reshape(b, sq, h * hd) @ p.wo
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def init_cache(cfg, batch: int, max_seq: int, *, window: Optional[int] = None,
+               dtype=None, device):
+    s = min(window, max_seq) if window else max_seq
+    shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
+    dtype = layers.dt(dtype or cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _position(pos, device) -> torch.Tensor:
+    """pos (python int or scalar tensor) as a (1,) int64 tensor on device."""
+    if torch.is_tensor(pos):
+        return pos.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.full((1,), int(pos), dtype=torch.int64, device=device)
+
+
+def decode_attention(p: Attention, x, cache, pos, cfg, *, window=None,
+                     use_rope=True, impl=None):
+    """One-token decode.  x: (B, d); pos: scalar int (current position).
+
+    Returns (y (B, d), new_cache).
+    """
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    hd = p.wq.shape[1] // h
+    b = x.shape[0]
+    posv = _position(pos, x.device)
+    q, k, v = _proj_qkv(p, x[:, None, :], h, hkv, hd)
+    if use_rope:
+        cos, sin = layers.rope_cos_sin(posv, hd, cfg.rope_theta)
+        q = layers.apply_rope(q, cos[None], sin[None])
+        k = layers.apply_rope(k, cos[None], sin[None])
+    s_cache = cache["k"].shape[1]
+    ring = window is not None and s_cache <= window
+    slot = (posv % s_cache) if ring else posv
+    # The masked write of the reference: a slot past the cache (pos >=
+    # max_seq without a ring) matches nothing, so the new key and value are
+    # dropped exactly as in JAX, never written out of bounds.
+    idx = torch.arange(s_cache, device=x.device)
+    hot = (idx == slot)[None, :, None, None]
+    k_cache = torch.where(hot, k.to(cache["k"].dtype), cache["k"])
+    v_cache = torch.where(hot, v.to(cache["v"].dtype), cache["v"])
+    valid = idx <= posv                     # full cache AND ring
+    if window is not None and not ring:
+        valid &= idx > (posv - window)      # full-size cache, windowed attention
+    valid = valid[None].expand(b, s_cache).contiguous()
+    out = ops.decode_attention(q.reshape(b, h, hd), k_cache, v_cache, valid,
+                               impl=impl or cfg.attention_impl)
+    y = out.reshape(b, h * hd) @ p.wo
+    return y, {"k": k_cache, "v": v_cache}

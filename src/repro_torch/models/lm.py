@@ -1,0 +1,108 @@
+"""Decoder-only language model (port of ``repro.models.lm``, dense "A"
+stacks).  Vision inputs and the training loss come with later slices."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from repro_torch.models import layers, transformer
+
+
+class LM(nn.Module):
+    """Parameters of the LM.  ``state_dict`` keys: ``embed``,
+    ``blocks.<layer>.{norm1,attn,norm2,ffn}.<leaf>``, ``norm_f.<leaf>`` and,
+    for untied configs, ``unembed`` — every dense weight ``(in, out)``."""
+
+    def __init__(self, cfg, *, device, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.vision is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the vision projector is not ported yet "
+                "(ROADMAP item A5)")
+        pdt = cfg.param_dtype
+        self.embed = layers.embed_init(gen, cfg.vocab_size, cfg.d_model, pdt,
+                                       device=device)
+        self.blocks = transformer.init_stack(gen, cfg, device=device)
+        self.norm_f = layers.norm_init(cfg.d_model, cfg.norm, pdt, device=device)
+        if not cfg.tie_embeddings:
+            self.unembed = layers.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                             pdt, device=device)
+
+
+def init_lm(gen: torch.Generator, cfg, *, max_seq: int, device) -> LM:
+    del max_seq  # learned positions (whisper-style decoders) are not ported
+    return LM(cfg, device=device, gen=gen)
+
+
+def _embed_tokens(p: LM, cfg, tokens):
+    return p.embed[tokens].to(layers.dt(cfg.dtype))
+
+
+def _unembed(p: LM, cfg, x):
+    w = p.embed.T if cfg.tie_embeddings else p.unembed
+    return x.float() @ w.float()
+
+
+def _hidden(p: LM, cfg, batch, *, window=None):
+    """Final-norm hidden states (B, S, d) and per-layer cache material."""
+    x = _embed_tokens(p, cfg, batch["tokens"])
+    q_pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
+    x, caches = transformer.stack_full(p.blocks, x, cfg, q_pos=q_pos, window=window)
+    return layers.norm_apply(p.norm_f, x, cfg.norm), caches
+
+
+def lm_forward(p: LM, cfg, batch, *, window=None):
+    """Full-sequence forward: returns (logits (B, S, V) fp32, caches)."""
+    x, caches = _hidden(p, cfg, batch, window=window)
+    return _unembed(p, cfg, x), caches
+
+
+def lm_prefill(p: LM, cfg, batch, *, max_seq: int, window=None):
+    """Prefill: returns (last-token logits, decode caches, next position).
+
+    Only the last position is unembedded: the same numbers as the JAX
+    package's full forward sliced at -1, without the (B, S, V) fp32 tensor.
+    """
+    x, raw = _hidden(p, cfg, batch, window=window)
+    seq_len = x.shape[1]
+    caches = _format_caches(cfg, raw, seq_len=seq_len, max_seq=max_seq,
+                            window=window)
+    return _unembed(p, cfg, x[:, -1, :]), caches, seq_len
+
+
+def _pad_seq(t, s_cache: int):
+    """Zero-pad (B, S, H, D) along S to s_cache."""
+    pad = s_cache - t.shape[1]
+    if pad < 0:
+        raise ValueError(f"prompt of {t.shape[1]} tokens exceeds the "
+                         f"{s_cache}-slot decode cache")
+    return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) if pad else t
+
+
+def _format_caches(cfg, raw_caches, *, seq_len: int, max_seq: int, window):
+    """Pack per-layer prefill keys/values into the fixed decode layout."""
+    s_cache = min(window, max_seq) if window else max_seq
+    out = []
+    for c in raw_caches:
+        k, v = c["k"], c["v"]                  # (B, S, hkv, hd)
+        if window and s_cache <= window and seq_len >= s_cache:
+            # ring layout: absolute position p lives in slot p % w; the kept
+            # suffix starts at `start`, so roll right by start % w.
+            w = s_cache
+            shift = (seq_len - w) % w
+            out.append({"k": torch.roll(k[:, -w:], shift, dims=1),
+                        "v": torch.roll(v[:, -w:], shift, dims=1)})
+        else:
+            out.append({"k": _pad_seq(k, s_cache), "v": _pad_seq(v, s_cache)})
+    return out
+
+
+def lm_decode_step(p: LM, cfg, caches, token, pos, *, window=None):
+    """token: (B,) int; pos: scalar int.  Returns (logits (B, V), caches)."""
+    x = _embed_tokens(p, cfg, token)
+    x, caches = transformer.stack_decode(p.blocks, x, cfg, pos=pos,
+                                         window=window, caches=caches)
+    x = layers.norm_apply(p.norm_f, x, cfg.norm)
+    return _unembed(p, cfg, x), caches

@@ -1,0 +1,134 @@
+"""Decoder-only block stack (port of ``repro.models.transformer``).
+
+The JAX package stacks parameters over the repeats of a block *period* and
+runs them under ``lax.scan``; PyTorch runs eagerly, so here the layers are an
+``nn.ModuleList`` walked by a Python loop and each layer keeps its own cache.
+This slice ports the ``"A"`` block (GQA attention + dense FFN).  Mamba
+(``M``), xLSTM (``L``/``S``) and MoE blocks raise ``NotImplementedError``:
+they come with ROADMAP item A5.
+
+Modes:
+  full   — prefill over (B, S); returns per-layer cache material
+  decode — one token against per-layer caches
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.nn as nn
+
+from repro_torch.models import attention, layers
+
+_LATER = ("is not ported yet: Mamba, xLSTM and MoE blocks come with ROADMAP "
+          "item A5 (the remaining model families)")
+
+
+# --------------------------------------------------------------------------- #
+# pattern / period logic
+# --------------------------------------------------------------------------- #
+
+
+def period_len(cfg) -> int:
+    p = len(cfg.block_pattern)
+    if cfg.moe is not None:
+        p = math.lcm(p, cfg.moe.every_n_layers)
+    if cfg.num_layers % p:
+        raise ValueError(
+            f"{cfg.name}: num_layers={cfg.num_layers} not a multiple of "
+            f"pattern period {p}")
+    return p
+
+
+def _block_meta(cfg) -> List[Dict[str, Any]]:
+    """Per-position-in-period: mixer kind + ffn kind."""
+    per = period_len(cfg)
+    moe_mask = cfg.moe_layer_mask()
+    pat = cfg.layer_pattern
+    out = []
+    for i in range(per):
+        if pat[i] != "A":
+            raise NotImplementedError(f"{cfg.name}: block kind {pat[i]!r} {_LATER}")
+        if moe_mask[i]:
+            raise NotImplementedError(f"{cfg.name}: the MoE FFN {_LATER}")
+        out.append({"kind": pat[i], "ffn": "dense" if cfg.d_ff else "none"})
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# blocks
+# --------------------------------------------------------------------------- #
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, meta, *, device, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.norm1 = layers.norm_init(cfg.d_model, cfg.norm, cfg.param_dtype, device=device)
+        self.attn = attention.Attention(cfg, device=device, gen=gen)
+        if meta["ffn"] == "dense":
+            self.norm2 = layers.norm_init(cfg.d_model, cfg.norm, cfg.param_dtype,
+                                          device=device)
+            self.ffn = layers.MLP(cfg.d_model, cfg.d_ff, cfg.act, cfg.param_dtype,
+                                  device=device, gen=gen)
+
+
+def init_stack(gen: Optional[torch.Generator], cfg, *, device) -> nn.ModuleList:
+    """One ``Block`` per layer (layer ``i`` is period position ``i % period``)."""
+    metas = _block_meta(cfg)
+    return nn.ModuleList(Block(cfg, metas[i % len(metas)], device=device, gen=gen)
+                         for i in range(cfg.num_layers))
+
+
+def _apply_ffn(p: Block, x, cfg):
+    if hasattr(p, "ffn"):
+        h = layers.norm_apply(p.norm2, x, cfg.norm)
+        x = x + layers.mlp_apply(p.ffn, h, cfg.act)
+    return x
+
+
+def _block_full(p: Block, x, cfg, q_pos, window):
+    """Full-sequence block.  Returns (x, cache_material)."""
+    h = layers.norm_apply(p.norm1, x, cfg.norm)
+    y, (k, v) = attention.full_attention(p.attn, h, cfg, q_pos=q_pos,
+                                         window=window, return_kv=True)
+    x = _apply_ffn(p, x + y, cfg)
+    return x, {"k": k, "v": v}
+
+
+def _block_decode(p: Block, x, cfg, pos, window, cache):
+    """One-token block.  x: (B, d).  Returns (x, new_cache)."""
+    h = layers.norm_apply(p.norm1, x, cfg.norm)
+    y, cache = attention.decode_attention(p.attn, h, cache, pos, cfg, window=window)
+    x = _apply_ffn(p, (x + y)[:, None, :], cfg)
+    return x[:, 0, :], cache
+
+
+# --------------------------------------------------------------------------- #
+# stack apply (a Python loop over layers)
+# --------------------------------------------------------------------------- #
+
+
+def stack_full(blocks: nn.ModuleList, x, cfg, *, q_pos, window=None):
+    """x: (B, S, d) -> (x, caches), one cache dict per layer."""
+    caches = []
+    for p in blocks:
+        x, c = _block_full(p, x, cfg, q_pos, window)
+        caches.append(c)
+    return x, caches
+
+
+def stack_decode(blocks: nn.ModuleList, x, cfg, *, pos, window=None, caches=None):
+    """x: (B, d) one token -> (x, new_caches)."""
+    new = []
+    for p, c in zip(blocks, caches):
+        x, c = _block_decode(p, x, cfg, pos, window, c)
+        new.append(c)
+    return x, new
+
+
+def init_decode_caches(cfg, batch: int, max_seq: int, *, window=None, device):
+    """Allocate one zero cache per layer."""
+    _block_meta(cfg)
+    return [attention.init_cache(cfg, batch, max_seq, window=window, device=device)
+            for _ in range(cfg.num_layers)]

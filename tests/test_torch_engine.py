@@ -1,0 +1,127 @@
+"""The port's InferenceEngine against the JAX engine on the same weights.
+
+Both serve granite-3-2b SMOKE at ``max_seq=16``.  The JAX engine initialises
+its weights from its seed; the port's engine restores them from its own
+``SnapshotStore``, written from ``params_from_jax``.  Greedy tokens must be
+equal (the logits agree to ~1e-6 in fp32, far inside any argmax margin of
+these random weights); the port runs on the CPU here (``device="cpu"``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.lifecycle import STARTUP_PHASES
+from repro.serving.engine import InferenceEngine as JaxEngine
+from repro.serving.engine import SnapshotStore as JaxStore
+from repro_torch.models.convert import params_from_jax
+from repro_torch.serving.engine import InferenceEngine, SnapshotStore
+
+ARCH, MAX_SEQ, STEPS = "granite-3-2b", 16, 6
+
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    root = tmp_path_factory.mktemp("engines")
+    jeng = JaxEngine(ARCH, smoke=True, max_seq=MAX_SEQ, batch=1,
+                     store=JaxStore(str(root / "jax")))
+    jbd = jeng.cold_start()
+    store = SnapshotStore(str(root / "torch"))
+    teng = InferenceEngine(ARCH, smoke=True, max_seq=MAX_SEQ, batch=1,
+                           store=store, device="cpu")
+    store.save_params(teng.key, params_from_jax(jax.tree.map(np.asarray, jeng.params)))
+    tbd = teng.cold_start(from_snapshot=True)
+    return jeng, jbd, teng, tbd
+
+
+def _prompt(seed):
+    return np.random.default_rng(seed).integers(0, 512, (1, MAX_SEQ)).astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_greedy_tokens_equal_the_jax_engine(engines, seed):
+    jeng, _, teng, _ = engines
+    want, _ = jeng.serve(_prompt(seed), decode_steps=STEPS)
+    got, stats = teng.serve(_prompt(seed), decode_steps=STEPS)
+    assert got.shape == (1, STEPS) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert stats.tokens == STEPS and stats.prefill_s > 0 and stats.decode_s > 0
+
+
+def test_breakdown_has_the_jax_engine_phases(engines):
+    _, jbd, _, tbd = engines
+    want = {p.value for p in STARTUP_PHASES}
+    assert {p.value for p in jbd.seconds} == want
+    assert {p.value for p in tbd.seconds} == want
+    assert all(s >= 0 for s in tbd.seconds.values())
+    assert engines[2].key == engines[0].key
+
+
+def test_shutdown_and_restore_give_the_same_tokens(engines):
+    jeng, _, teng, _ = engines
+    want, _ = jeng.serve(_prompt(3), decode_steps=STEPS)
+    teng.shutdown()
+    assert not teng.warm and teng.params is None
+    with pytest.raises(RuntimeError, match="cold engine"):
+        teng.serve(_prompt(3), decode_steps=STEPS)
+    bd = teng.cold_start(from_snapshot=True)
+    # the key was warmed in this process: the restore skips the warm-up
+    assert teng.store.get_executable(teng.key) is not None
+    assert bd.seconds.keys() == engines[3].seconds.keys()
+    got, _ = teng.serve(_prompt(3), decode_steps=STEPS)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_snapshot_roundtrip_keeps_weights_exactly(engines, tmp_path):
+    _, _, teng, _ = engines
+    store = SnapshotStore(str(tmp_path))
+    state = teng.params.state_dict()
+    assert store.save_params("k", state) > 0
+    back = store.load_params("k", "cpu")
+    assert back.keys() == state.keys()
+    for name, t in state.items():
+        assert torch.equal(back[name], t), name
+
+
+def test_decode_past_max_seq_leaves_the_cache_unchanged(engines):
+    """The JAX engine prefills max_seq tokens and decodes at pos >= max_seq:
+    its one-hot cache write matches no slot, so the new key/value are
+    dropped.  The port reproduces this (and never writes out of bounds)."""
+    jeng, _, teng, _ = engines
+    tokens = _prompt(4)
+    jb, tb = jeng.bundle, teng.bundle
+    jlogits, jcaches, pos = jb.prefill(jeng.params, {"tokens": jnp.asarray(tokens)})
+    with torch.inference_mode():
+        tlogits, tcaches, tpos = tb.prefill(teng.params, {"tokens": torch.from_numpy(tokens)})
+        assert tpos == int(pos) == MAX_SEQ
+        tok = tlogits.argmax(-1)
+        tlogits2, tcaches2 = tb.decode_step(teng.params, tcaches, tok, MAX_SEQ)
+    jlogits2, jcaches2 = jb.decode_step(jeng.params, jcaches, jnp.asarray(tok.numpy(), jnp.int32),
+                                        jnp.asarray(MAX_SEQ, jnp.int32))
+    np.testing.assert_allclose(tlogits2.numpy(), np.asarray(jlogits2), atol=1e-4, rtol=1e-4)
+    for layer, (before, after) in enumerate(zip(tcaches, tcaches2)):
+        for kv in ("k", "v"):
+            assert torch.equal(before[kv], after[kv]), (layer, kv)
+            np.testing.assert_array_equal(np.asarray(jcaches2[0][kv][layer]),
+                                          np.asarray(jcaches[0][kv][layer]))
+            np.testing.assert_allclose(after[kv].numpy(), np.asarray(jcaches2[0][kv][layer]),
+                                       atol=1e-4, rtol=1e-4)
+
+
+def test_serve_takes_only_the_warmed_shape(engines):
+    _, _, teng, _ = engines
+    with pytest.raises(ValueError, match="tokens must be"):
+        teng.serve(np.zeros((1, MAX_SEQ - 1), np.int32))
+    with pytest.raises(ValueError, match="token ids"):
+        teng.serve(np.full((1, MAX_SEQ), 512, np.int32))
+
+
+def test_cold_start_from_the_seed_serves(tmp_path):
+    e = InferenceEngine(ARCH, smoke=True, max_seq=MAX_SEQ, store=SnapshotStore(str(tmp_path)),
+                        device="cpu")
+    bd = e.cold_start()
+    assert e.store.has_params(e.key) and e.package_bytes() > 0
+    assert {p.value for p in bd.seconds} == {p.value for p in STARTUP_PHASES}
+    out, _ = e.serve(_prompt(5), decode_steps=2)
+    assert out.shape == (1, 2) and ((0 <= out) & (out < 512)).all()

@@ -1,0 +1,155 @@
+"""The port's decoder-only LM against the JAX package's, on the same weights.
+
+JAX initialises the SMOKE config from ``jax.random.key(0)``; the tree is
+carried across as numpy arrays by ``repro_torch.models.convert.
+params_from_jax``.  Prefill logits and four decode steps are compared at
+1e-4 abs/rel in fp32: both sides compute the same fp32 arithmetic and differ
+only in summation order (XLA's and torch's matmuls, the chunked online softmax
+against the plain one), which moves 2-layer logits by ~1e-6, while a layout
+or rounding-order fault (a transposed weight, swapped SwiGLU halves, a wrong
+RoPE split, a misrolled ring) moves them by 1e-2 or more.
+"""
+import dataclasses
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import config as jconfig
+from repro.core import lifecycle as jlifecycle
+from repro.models import lm as jlm
+from repro.models import registry as jregistry
+from repro.models import transformer as jtransformer
+from repro_torch import config as tconfig
+from repro_torch.core import lifecycle as tlifecycle
+from repro_torch.models import lm as tlm
+from repro_torch.models import registry as tregistry
+from repro_torch.models import transformer as ttransformer
+from repro_torch.models.convert import params_from_jax
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+B = 2
+
+CASES = [
+    # (arch, prompt, max_seq, jax attention_impl)
+    ("granite3_2b", 16, 32, "reference"),
+    ("granite3_2b", 16, 32, "pallas"),
+    ("h2o_danube3_4b", 96, 128, "reference"),   # window 64: the ring roll runs
+    ("qwen25_14b", 16, 32, "reference"),        # QKV bias, rope_theta 1e6
+]
+
+
+def _configs(arch):
+    jmod = importlib.import_module(f"repro.configs.{arch}")
+    tmod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return jmod, tmod
+
+
+def _models(arch, max_seq, impl):
+    jmod, tmod = _configs(arch)
+    jcfg = dataclasses.replace(jmod.SMOKE, attention_impl=impl)
+    jb = jregistry.build(jcfg, max_seq=max_seq)
+    jparams = jb.init(jax.random.key(0))
+    tb = tregistry.build(tmod.SMOKE, max_seq=max_seq, device="cpu")
+    model = tb.empty()
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams)),
+                          assign=True)
+    return jb, jparams, tb, model
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[3]}")
+def test_prefill_and_decode_logits_match_jax(case):
+    arch, prompt, max_seq, impl = case
+    jb, jparams, tb, model = _models(arch, max_seq, impl)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, tb.cfg.vocab_size, (B, prompt)).astype(np.int32)
+    steps = rng.integers(0, tb.cfg.vocab_size, (4, B)).astype(np.int32)
+
+    jlogits, jcaches, jpos = jax.jit(jb.prefill)(jparams, {"tokens": jnp.asarray(tokens)})
+    tlogits, tcaches, tpos = tb.prefill(model, {"tokens": torch.from_numpy(tokens)})
+    assert tpos == int(jpos) == prompt
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **TOL)
+
+    jstep = jax.jit(jb.decode_step)
+    for i, tok in enumerate(steps):
+        jlogits, jcaches = jstep(jparams, jcaches, jnp.asarray(tok),
+                                 jnp.asarray(prompt + i, jnp.int32))
+        tlogits, tcaches = tb.decode_step(model, tcaches, torch.from_numpy(tok),
+                                          prompt + i)
+        np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                                   err_msg=f"{arch} decode step {i}", **TOL)
+    # the caches agree too (ring slots included): layer l is JAX's [0][l]
+    for layer, c in enumerate(tcaches):
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(c[kv].numpy(), np.asarray(jcaches[0][kv][layer]),
+                                       err_msg=f"{arch} layer {layer} {kv}", **TOL)
+
+
+@pytest.mark.parametrize("arch", ["granite3_2b", "h2o_danube3_4b"])
+def test_full_forward_logits_match_jax(arch):
+    jb, jparams, tb, model = _models(arch, 128, "reference")
+    tokens = np.random.default_rng(1).integers(0, tb.cfg.vocab_size, (B, 80)).astype(np.int32)
+    jlogits, _, _ = jlm.lm_forward(jparams, jb.cfg, {"tokens": jnp.asarray(tokens)},
+                                   window=jb.window)
+    tlogits, _ = tlm.lm_forward(model, tb.cfg, {"tokens": torch.from_numpy(tokens)},
+                                window=tb.window)
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **TOL)
+
+
+def test_state_dict_names_match_the_port_model():
+    jb, jparams, tb, model = _models("qwen25_14b", 32, "reference")
+    carried = params_from_jax(jax.tree.map(np.asarray, jparams))
+    fresh = tb.init(torch.Generator().manual_seed(0)).state_dict()
+    assert set(carried) == set(fresh)
+    for name, t in fresh.items():
+        assert carried[name].shape == t.shape and carried[name].dtype == t.dtype, name
+
+
+@pytest.mark.parametrize("arch", jconfig.ARCH_IDS)
+def test_config_copies_equal_the_reference(arch):
+    jmod, tmod = _configs(arch)
+    for attr in ("CONFIG", "SMOKE"):
+        assert dataclasses.asdict(getattr(tmod, attr)) == \
+            dataclasses.asdict(getattr(jmod, attr)), f"{arch}.{attr}"
+    assert tconfig.get_config(arch).param_count() == jconfig.get_config(arch).param_count()
+
+
+def test_lifecycle_copy_equals_the_reference():
+    assert [p.value for p in tlifecycle.STARTUP_PHASES] == \
+        [p.value for p in jlifecycle.STARTUP_PHASES]
+    assert [t.value for t in tlifecycle.WarmthTier] == [t.value for t in jlifecycle.WarmthTier]
+
+
+@pytest.mark.parametrize("arch", ["jamba_v01_52b", "xlstm_125m", "qwen3_moe_30b_a3b",
+                                  "whisper_large_v3", "internvl2_1b"])
+def test_unported_families_raise_not_implemented(arch):
+    with pytest.raises(NotImplementedError, match="A5"):
+        tregistry.build_arch(arch, smoke=True, max_seq=16, device="cpu").init(
+            torch.Generator().manual_seed(0))
+
+
+def test_granite_full_width_parameter_count():
+    """2.53 B parameters at full width (counted on the meta device: no memory).
+    ``param_count`` leaves out the final norm's d_model scales."""
+    tb = tregistry.build_arch("granite-3-2b", max_seq=512, device="cpu")
+    n = sum(t.numel() for t in tb.empty().state_dict().values())
+    assert n == tb.cfg.param_count() + tb.cfg.d_model
+    assert 2.5e9 < n < 2.6e9
+
+
+@pytest.mark.parametrize("arch,max_seq", [("granite3_2b", 32), ("h2o_danube3_4b", 128)])
+def test_decode_cache_layout_matches_jax(arch, max_seq):
+    """One zero cache per layer, ring-sized (window 64) for SWA configs."""
+    jmod, tmod = _configs(arch)
+    window = tregistry.resolve_window(tmod.SMOKE, None)
+    jc = jtransformer.init_decode_caches(jmod.SMOKE, B, max_seq, window=window)
+    tc = ttransformer.init_decode_caches(tmod.SMOKE, B, max_seq, window=window,
+                                         device="cpu")
+    assert len(tc) == tmod.SMOKE.num_layers
+    for layer, c in enumerate(tc):
+        for kv in ("k", "v"):
+            want = np.asarray(jc[0][kv][layer])
+            assert c[kv].shape == want.shape and not c[kv].any()
