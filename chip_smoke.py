@@ -16,7 +16,17 @@ Phases, each fatal on failure:
                scale to zero, snapshot restore, 1 more request (tokens equal to
                the first), with the kernels' launch counts over the whole run;
                then one more request timed and one traced (torch.profiler) for
-               the device's busy share and kernel time by name.
+               the device's busy share and kernel time by name;
+  6. cluster — the batch simulator's cluster-step kernel against its plain
+               torch version on the card: the reference tests' random fixtures
+               (seeds 0-2) and one wide random table;
+  7. batch   — the batch sweep driver on the card: batch_dense64 and
+               batch_grid64 through run_sweep(..., driver="batch"), one kernel
+               launch each; then each grid's built tables through the kernel
+               and its plain version (state and aggregates compared, both
+               timed), the sweep's summaries against the plain version's
+               ledgers, the batch-vs-scalar spot check on four dense cells,
+               and one traced batch call for the device's busy share.
 Then one JSON line of kernel numbers and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -42,6 +52,10 @@ MODEL_TOL = 1e-3
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# cluster step vs its plain version: the reference's own tolerance
+# (tests/test_batchsim.py, Pallas twin vs oracle)
+CLUSTER_TOL = dict(rtol=1e-4, atol=1e-2)
+BATCH_GRIDS = ("batch_dense64", "batch_grid64")
 
 
 def _fail(msg: str) -> None:
@@ -54,8 +68,8 @@ def _close(got, want, tol):
     return err.max().item(), bool((err <= tol + tol * want.float().abs()).all())
 
 
-def _time_ms(torch, fn, iters: int = 50) -> float:
-    for _ in range(3):
+def _time_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
+    for _ in range(warmup):
         fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -298,6 +312,256 @@ def profile_serve(torch, eng, prompt):
         print(f"profile   {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 6: the cluster-step kernel against its plain version
+# --------------------------------------------------------------------------- #
+
+
+def random_tables(rng, *, C=3, F=4, W=2, K=4, T=16, worker_mb=8192.0):
+    """Randomized cluster-step state in the kernel's layout: arrivals with
+    bursts, mixed tiers/edges/deadlines, partially-used workers.  A copy of
+    ``tests/test_batchsim.py::_random_tables`` (the same draws in the same
+    order, so the default worker size gives the same arrays), with the
+    worker size open so that a wide table keeps free memory.  Returns the
+    reference's order: nw, fs, free, arrivals, conc, promote, dwell, ntier,
+    frac, scal, fparam."""
+    import numpy as np
+    from repro_torch.kernels import ref as R
+
+    f32 = np.float32
+    nw = (rng.integers(0, 3, (C, F, W))).astype(f32)
+    fs = np.zeros((C, F, R.FS_N), f32)
+    fs[:, :, R.FS_TIER] = rng.integers(1, 5, (C, F))
+    fs[:, :, R.FS_EDGE] = rng.integers(0, K - 1, (C, F))
+    fs[:, :, R.FS_DEADLINE] = rng.uniform(0.0, 6.0, (C, F))
+    fs[:, :, R.FS_QUEUED] = rng.integers(0, 2, (C, F))
+    arrivals = rng.poisson(0.7, (C, T, F)).astype(f32)
+    conc = np.maximum(arrivals, rng.integers(0, 3, (C, T, F))).astype(f32)
+    fparam = np.zeros((C, F, R.FP_N), f32)
+    fparam[:, :, R.FP_MEM_MB] = rng.choice([256.0, 512.0, 1024.0], (C, F))
+    fparam[:, :, R.FP_EXEC_S] = rng.uniform(0.05, 0.4, (C, F))
+    fparam[:, :, R.FP_SVC] = np.maximum(
+        np.floor(0.5 / fparam[:, :, R.FP_EXEC_S]), 1.0)
+    fparam[:, :, R.FP_MEM_GB] = fparam[:, :, R.FP_MEM_MB] / 1024.0
+    fparam[:, :, R.FP_EXEC_GB] = fparam[:, :, R.FP_MEM_GB]
+    promote = np.sort(rng.uniform(0.01, 2.0, (C, F, 5)))[:, :, ::-1].copy()
+    dwell = np.full((C, F, K), R.BIG_TIME, f32)
+    dwell[:, :, :2] = rng.uniform(2.0, 20.0, (C, F, 2))
+    ntier = np.zeros((C, F, K), f32)
+    ntier[:, :, 0] = rng.choice([R.T_PAUSED, R.T_DEAD], (C, F))
+    frac = np.tile(np.array([0.0, 0.02, 0.1, 0.3, 1.0], f32), (C, 1))
+    scal = np.zeros((C, R.SC_N), f32)
+    scal[:, R.SC_DT] = 0.5
+    scal[:, R.SC_HORIZON] = T * 0.5 - rng.uniform(0.0, 2.0, C)
+    free = np.full((C, W), worker_mb, f32)
+    free -= (nw * fparam[:, :, R.FP_MEM_MB][:, :, None]).sum(axis=1)
+    return (nw, fs, free.astype(f32), arrivals, conc,
+            promote.astype(f32), dwell, ntier, frac, scal, fparam)
+
+
+def kernel_order(tables):
+    """``random_tables``' order -> the kernel's argument order."""
+    nw, fs, free, arrivals, conc, promote, dwell, ntier, frac, scal, fparam = tables
+    return nw, fs, free, arrivals, conc, fparam, promote, dwell, ntier, frac, scal
+
+
+def table_args(tables):
+    """A ``BatchTables``' arrays in the kernel's argument order."""
+    return (tables.nw, tables.fs, tables.free, tables.arrivals, tables.conc,
+            tables.fparam, tables.promote, tables.dwell, tables.ntier,
+            tables.frac, tables.scal)
+
+
+def _cluster_agree(got, want):
+    """(max |err| over nw, fs, free, agg; all within CLUSTER_TOL and finite)."""
+    import torch
+
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        err = max(err, (g - w).abs().max().item())
+        ok &= bool(torch.isfinite(g).all()) and torch.allclose(g, w, **CLUSTER_TOL)
+    return err, ok
+
+
+def _cluster_bound(args, outs):
+    """Least time for one launch on this run's inputs, over its active steps
+    (those inside each cell's horizon): every input read once and every
+    output written once, except ``conc``, which the kernel reads only in
+    active steps; against the operations of the active steps, counted from
+    the kernel's arithmetic (about 70 per function and 22 per (function,
+    worker) pair in a step whose expiry walk stops at its first edge)."""
+    import math
+
+    from repro_torch.kernels import ref as R
+
+    nw, arrivals, conc, scal = args[0], args[3], args[4], args[10]
+    _, f, w = nw.shape
+    t_steps = arrivals.shape[1]
+    active = sum(min(t_steps, math.ceil(float(h) / float(dt)))
+                 for h, dt in scal[:, [R.SC_HORIZON, R.SC_DT]].tolist())
+    nbytes = (_nbytes(*(a for a in args if a is not conc), *outs)
+              + active * f * conc.element_size())
+    return _bound(active * f * (70 + 22 * w), nbytes, "float32")
+
+
+def _cluster_compare(torch, name, args):
+    """The kernel against its plain version on the same tables, fatal on a
+    disagreement.  Returns (got, want, max |err|, plain ms): the one plain
+    call that gives ``want`` is timed with CUDA events (it takes seconds)."""
+    from repro_torch.kernels import cluster_step as kc
+
+    got = kc.cluster_sim_hopper(*args)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want = kc.cluster_sim_plain(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    err, ok = _cluster_agree(got, want)
+    c, f, w = args[0].shape
+    print(f"cluster {name} C={c} F={f} W={w} K={args[7].shape[2]} T={args[3].shape[1]}: "
+          f"max_abs_err={err:.3e} rtol={CLUSTER_TOL['rtol']} atol={CLUSTER_TOL['atol']} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        for nm, g, wt in zip(("nw", "fs", "free", "agg"), got, want):
+            bad = ~torch.isclose(g, wt, **CLUSTER_TOL)
+            print(f"cluster   {nm}: {int(bad.sum())} entries off, first at "
+                  f"{bad.nonzero()[:3].tolist()}")
+        _fail(f"cluster_step {name} disagrees with its plain version")
+    return got, want, err, start.elapsed_time(stop)
+
+
+def cluster_phase(torch, dev):
+    """The fixtures and the wide table; the built grids' tables are held
+    against the plain version in the batch phase."""
+    import numpy as np
+
+    cases = [(f"fixture{s}", kernel_order(random_tables(np.random.default_rng(s))))
+             for s in range(3)]
+    cases.append(("wide", kernel_order(random_tables(
+        np.random.default_rng(3), C=64, F=256, W=64, K=8, T=256, worker_mb=262144.0))))
+    for name, arrays in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+        _cluster_compare(torch, name, args)
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: the batch sweep driver
+# --------------------------------------------------------------------------- #
+
+
+def batch_phase(torch, dev):
+    import numpy as np
+    from repro_torch.core import batchsim
+    from repro_torch.experiments import registry, runner
+    from repro_torch.kernels import cluster_step as kc
+
+    launches, timed = 0, None
+    for grid in BATCH_GRIDS:
+        kc.launches = 0                             # the main path starts here
+        t0 = time.perf_counter()
+        rows = list(runner.run_sweep(grid, driver="batch"))
+        wall = time.perf_counter() - t0
+        n = kc.launches                             # read just after the main path
+        launches += n
+        cells = registry.get_sweep(grid).scenarios()
+        print(f"batch {grid}: {len(rows)} cells in {wall:.3f} s (run_sweep, driver=batch), "
+              f"cluster_step launches {n}")
+        if n != 1 or len(rows) != len(cells):
+            _fail(f"{grid}: {n} kernel launches for {len(rows)} cells (expected 1 for "
+                  f"{len(cells)})")
+        # the same grid again, in parts, for the numbers and the plain comparison
+        t0 = time.perf_counter()
+        tables = batchsim.build_tables(cells, trace_fn=runner.build_trace)
+        build_s = time.perf_counter() - t0
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in table_args(tables)]
+        got, want, err, plain_ms = _cluster_compare(torch, grid, args)
+        plain = batchsim.ledgers_from_agg(tables, *(x.cpu().numpy() for x in
+                                                  (want[0], want[1], want[3])))
+        worst = 0.0
+        for (sc, s), led in zip(rows, plain):
+            ref = runner.summarize(sc, led)
+            for key, v in s.items():
+                r = ref[key]
+                if np.isnan(v) and np.isnan(r):
+                    continue
+                if not np.isfinite(v) or abs(v - r) > 1e-2 + 1e-4 * abs(r):
+                    _fail(f"{grid} {sc.name} {key}: sweep {v} != plain {r}")
+                worst = max(worst, abs(v - r))
+        print(f"batch {grid}: sweep summaries vs plain-version ledgers: max |diff| "
+              f"{worst:.3e} over {len(rows)} cells ok")
+        kernel_ms = _time_ms(torch, lambda: kc.cluster_sim_hopper(*args), iters=20)
+        bound = _cluster_bound(args, got)
+        print(f"time cluster_step fp32 ({grid}): kernel {kernel_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (one call), library none, bound {bound[0]:.5f} ms "
+              f"({bound[1]})")
+        if grid == "batch_dense64":
+            timed = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                         library_ms=None, bound=bound)
+        t0 = time.perf_counter()
+        batchsim.simulate_batch(cells, trace_fn=runner.build_trace)
+        sim_s = time.perf_counter() - t0
+        invocations = sum(tables.invocations)
+        print(f"batch {grid}: build_tables {build_s:.3f} s (traces cached), kernel "
+              f"{kernel_ms:.4f} ms, simulate_batch wall {sim_s:.3f} s, {invocations} "
+              f"invocations, {invocations / sim_s:.1f} invocations/s")
+        _profile_batch(torch, sim_s,
+                       lambda: batchsim.simulate_batch(cells, trace_fn=runner.build_trace))
+    _spot_check(torch)
+    return launches, timed
+
+
+def _profile_batch(torch, wall_s, call):
+    """Device busy share of one simulate_batch call (tables, copies, launch,
+    ledgers): the device time from a traced call over the wall time of an
+    unprofiled one (the first trace also pays the profiler's start-up)."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    if busy == 0:
+        print("profile batch call: no device time recorded (not measured)")
+        return
+    print(f"profile batch call: wall {wall_s * 1e3:.2f} ms (unprofiled), device time "
+          f"{busy / 1e3:.3f} ms, busy share {busy / (wall_s * 1e6):.5f}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"profile   {us / 1e3:9.3f} ms  {name[:90]}")
+
+
+def _spot_check(torch):
+    """Batch vs scalar simulator on the four dense cells of BENCH_batchsim.json."""
+    from repro_torch.core import batchsim
+    from repro_torch.experiments import registry, runner
+
+    recorded = {}
+    bench = ROOT / "BENCH_batchsim.json"
+    if bench.exists():
+        recorded = {r["name"]: r for r in json.loads(bench.read_text())["spot_check"]}
+    cells = registry.get_sweep("batch_dense64").scenarios()[::16][:4]
+    t0 = time.perf_counter()
+    rows = batchsim.spot_check(cells, trace_fn=runner.build_trace)
+    print(f"spot_check {len(rows)} dense cells in {time.perf_counter() - t0:.2f} s "
+          f"(batch on the card, scalar simulator on the host)")
+    for r in rows:
+        old = recorded.get(r.name, {})
+        print(f"spot_check {r.name}: cold rate sim {r.cold_rate_sim:.6f} batch "
+              f"{r.cold_rate_batch:.6f}; idle GB-s sim {r.idle_gb_s_sim:.2f} batch "
+              f"{r.idle_gb_s_batch:.2f}; {'ok' if r.ok else 'FAIL'} | recorded batch (older "
+              f"JAX code, CPU): cold {old.get('cold_rate_batch', float('nan')):.6f} idle "
+              f"{old.get('idle_gb_s_batch', float('nan')):.2f}")
+    if not all(r.ok for r in rows):
+        _fail("spot_check: the batch driver is outside the tolerance contract")
+
+
 def main() -> int:
     import torch
 
@@ -331,9 +595,12 @@ def main() -> int:
     timed = kernel_phase(torch, dev)
     model_phase(torch, dev)
     launches = engine_phase(torch)
+    cluster_phase(torch, dev)
+    launches["cluster_step"], timed["cluster_step"] = batch_phase(torch, dev)
 
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
-                "decode_attention": "src/repro/kernels/decode_attention.py:57"}
+                "decode_attention": "src/repro/kernels/decode_attention.py:57",
+                "cluster_step": "src/repro/kernels/cluster_step.py:237"}
     kernels = []
     for name, t in timed.items():
         kernels.append({

@@ -3,8 +3,9 @@ them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, ``build/repro_torch/<name>-<hash>.so`` at the repository root; the
-hash covers the source and the compiler flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  :func:`build` starts one ``nvcc``
+hash covers the source and its compiler flags (the common ``NVCC_FLAGS`` and
+the source's own ``EXTRA_FLAGS``), so an edited source is rebuilt and an
+unchanged one is loaded as it is.  :func:`build` starts one ``nvcc``
 per missing library, all at once.  A failed build raises; nothing falls back.
 """
 from __future__ import annotations
@@ -21,9 +22,13 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "decode_attention")
+SOURCES = ("flash_attention", "decode_attention", "cluster_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# per-source flags, appended to NVCC_FLAGS for that library only.  The cluster
+# step rounds every product as its plain version does: a contracted FMA can
+# flip the ceil / floor of a near-integer count.
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"cluster_step": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -41,9 +46,14 @@ def nvcc() -> str:
     return found
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """The compiler flags of library ``name``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -69,7 +79,7 @@ def _build_locked(names: Sequence[str]) -> float:
     compiler = nvcc()
     for name in todo:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp)
     failed = []

@@ -4,12 +4,19 @@ A CUDA kernel has no CPU mode, so every test here skips without a card.  The
 file imports neither JAX nor ``repro``, so it runs where only the port is
 installed: ``python -m pytest -q tests/test_torch_gpu.py`` on the H100.
 Tolerances are ``tests/test_kernels.py``'s (3e-5 fp32, 5e-2 bf16), with TF32
-off so that the plain version's fp32 products are full fp32.
+off so that the plain version's fp32 products are full fp32.  The cluster step
+is held at ``tests/test_batchsim.py``'s ``rtol=1e-4, atol=1e-2`` on random
+cohort state from ``chip_smoke.random_tables`` (a numpy copy of that test's
+fixture).
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import cluster_step as tcluster
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
 
@@ -101,3 +108,49 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                       q.transpose(1, 2), q_pos=pos[:4], kv_pos=pos[:4])
     with pytest.raises(TypeError):
         tflash.flash_attention_hopper(q.half(), q.half(), q.half(), q_pos=pos, kv_pos=pos)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CLUSTER_CASES = [
+    dict(seed=0), dict(seed=1), dict(seed=2),          # the reference's fixtures
+    dict(seed=3, C=4, F=16, W=8, K=6, T=64, worker_mb=16384.0),
+    dict(seed=4, C=8, F=100, W=33, K=5, T=40, worker_mb=102400.0),
+]
+
+
+@pytest.mark.parametrize("case", CLUSTER_CASES, ids=lambda c: f"seed{c['seed']}")
+def test_cluster_kernel_matches_plain_on_card(cuda, case):
+    kw = dict(case)
+    cs = _chip_smoke()
+    tables = cs.kernel_order(cs.random_tables(np.random.default_rng(kw.pop("seed")), **kw))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in tables]
+    before = tcluster.launches
+    got = tcluster.cluster_sim_hopper(*args)
+    assert tcluster.launches == before + 1
+    want = tcluster.cluster_sim_plain(*args)
+    for name, g, w in zip(("nw", "fs", "free", "agg"), got, want):
+        out = g.cpu().numpy()
+        assert np.isfinite(out).all(), name
+        np.testing.assert_allclose(out, w.cpu().numpy(), rtol=1e-4, atol=1e-2,
+                                   err_msg=name)
+
+
+def test_cluster_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    cs = _chip_smoke()
+    tables = cs.kernel_order(cs.random_tables(np.random.default_rng(0)))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in tables]
+    with pytest.raises(TypeError):
+        tcluster.cluster_sim_hopper(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        tcluster.cluster_sim_hopper(args[0], args[1][:, :2], *args[2:])
+    big = cs.kernel_order(cs.random_tables(np.random.default_rng(0), C=1, F=600, W=2, T=4))
+    big = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in big]
+    with pytest.raises(ValueError, match="at most"):
+        tcluster.cluster_sim_hopper(*big)

@@ -39,7 +39,17 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     for name in ("repro_torch.config", "repro_torch.configs.granite3_2b",
                  "repro_torch.core.lifecycle", "repro_torch.kernels.ops",
                  "repro_torch.kernels._build", "repro_torch.models.convert",
-                 "repro_torch.models.registry", "repro_torch.serving.engine"):
+                 "repro_torch.models.registry", "repro_torch.serving.engine",
+                 # the batch sweep driver's slice
+                 "repro_torch.kernels.ref", "repro_torch.kernels.cluster_step",
+                 "repro_torch.core.batchsim", "repro_torch.core.simulator",
+                 "repro_torch.core.cluster", "repro_torch.core.workload",
+                 "repro_torch.core.metrics", "repro_torch.core.costmodel",
+                 "repro_torch.core.events", "repro_torch.core.predictors.rl",
+                 "repro_torch.core.policies.fusion",
+                 "repro_torch.core.policies.scheduling",
+                 "repro_torch.experiments.catalog", "repro_torch.experiments.cli",
+                 "repro_torch.experiments.__main__", "repro_torch.topology.spec"):
         assert name in got["modules"]
 
 
@@ -52,6 +62,24 @@ def test_entry_points_raise_without_a_card():
         InferenceEngine("granite-3-2b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         registry.build_arch("granite-3-2b", smoke=True)
+
+
+def test_batch_driver_raises_without_a_card_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.core.batchsim import simulate_batch
+    from repro_torch.experiments import cli, registry, runner
+    cells = registry.get_sweep("batch_grid64").scenarios()[:2]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_batch(cells)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        list(runner.run_sweep("batch_grid64", driver="batch"))
+    argv = ["sweep", "calib/tiered_fixed", "--axis", "keepalive_ttl=30",
+            "--driver", "batch"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+    assert len(simulate_batch(cells, device="cpu")) == 2
+    assert cli.main(argv + ["--device", "cpu", "--json", str(tmp_path / "o.json")]) == 0
 
 
 def test_chip_smoke_fails_without_a_card():
