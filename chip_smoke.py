@@ -10,6 +10,8 @@ Phases, each fatal on failure:
                granite-3-2b's attention shapes (plus windowed and ragged cases),
                fp32 (TF32 off) and bf16, with the times of the kernel, the plain
                version and, as a yardstick only, F.scaled_dot_product_attention;
+               the selective scan on ragged fixtures and at the one-period
+               Jamba prefill shape, fp32 and bf16;
   4. model   — full-width granite-3-2b in fp32, prefill + 4 decode steps through
                the hand kernels and through the plain oracles on the same weights;
   5. engine  — the bf16 full-width InferenceEngine: cold start, 3 requests,
@@ -17,6 +19,15 @@ Phases, each fatal on failure:
                the first), with the kernels' launch counts over the whole run;
                then one more request timed and one traced (torch.profiler) for
                the device's busy share and kernel time by name;
+  hybrid     — one full-width period of jamba-v0.1-52b (8 layers MMMMAMMM, MoE
+               on the odd layers; only depth cut, from 32): in fp32, the kernel
+               path against the plain path as in phase 4, with the smallest
+               top-2 / top-3 router gap met; in bf16, registry.build's init /
+               prefill / decode_step through the engine's request loop
+               (engine.generate), 3 requests with exact launch counts and one
+               traced; then the
+               jamba SMOKE InferenceEngine (cold start, serve, snapshot restore,
+               serve);
   6. cluster — the batch simulator's cluster-step kernel against its plain
                torch version on the card: the reference tests' random fixtures
                (seeds 0-2) and one wide random table;
@@ -52,6 +63,13 @@ MODEL_TOL = 1e-3
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# exponentials: the special-function units' 16 per clock per SM, 132 SMs, 1.98 GHz boost
+PEAK_EXPS = 16 * 132 * 1.98e9
+# the selective scan vs its plain version: tests/test_kernels.py's scan tolerance
+# (fp32); bf16 is one rounding of y, held at the attention kernels' 5e-2
+SSM_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
+# one full-width period of the hybrid family: every width kept, depth 32 -> 8
+HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8
 # cluster step vs its plain version: the reference's own tolerance
 # (tests/test_batchsim.py, Pallas twin vs oracle)
 CLUSTER_TOL = dict(rtol=1e-4, atol=1e-2)
@@ -81,8 +99,12 @@ def _time_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _bound(flops: float, nbytes: float, dtype: str):
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+def _bound(flops: float, nbytes: float, dtype: str, exps: float = 0.0):
+    """Least ms for the work: bytes over HBM's rate against operations, which
+    are the larger of the FLOPs over the dtype's peak and the exponentials
+    over the special-function units' rate."""
+    t_ops = max(flops / PEAK_FLOPS[dtype], exps / PEAK_EXPS)
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -178,21 +200,85 @@ def kernel_phase(torch, dev):
     return timed
 
 
+def _ssm_inputs(torch, gen, bt, t, din, n, dtype):
+    """u, B, C in ``dtype``; delta, A, D and a nonzero h0 in fp32 (the Mamba
+    mixer's types)."""
+    dev, tdt = gen.device, getattr(torch, dtype)
+    u = torch.randn((bt, t, din), generator=gen, device=dev).to(tdt)
+    delta = torch.rand((bt, t, din), generator=gen, device=dev) * 0.1
+    A = -(torch.rand((din, n), generator=gen, device=dev) + 0.5)
+    B = torch.randn((bt, t, n), generator=gen, device=dev).to(tdt)
+    C = torch.randn((bt, t, n), generator=gen, device=dev).to(tdt)
+    D = torch.randn((din,), generator=gen, device=dev)
+    h0 = torch.randn((bt, din, n), generator=gen, device=dev)
+    return u, delta, A, B, C, D, h0
+
+
+def ssm_kernel_phase(torch, dev):
+    """The selective scan against its plain version: ragged fixtures, then the
+    one-period Jamba prefill shape (Bt 1, T 512, Din 8192, N 16), timed."""
+    from repro_torch.kernels import ssm_scan as ks
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [(2, t, din, n) for t in (1, 37, 256, 300) for din in (64, 200)
+             for n in (4, 8, 16)] + [(1, MAX_SEQ, 8192, 16)]
+    worst, timed = {}, None
+    for dtype in ("float32", "bfloat16"):
+        for case in cases:
+            args = _ssm_inputs(torch, gen, *case, dtype)
+            got = ks.ssm_scan_hopper(*args)
+            want = ks.ssm_scan_plain(*args)
+            torch.cuda.synchronize()
+            errs = [_close(g, w, SSM_TOL[dtype]) for g, w in zip(got, want)]
+            err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            if not ok or not all(torch.isfinite(g.float()).all() for g in got):
+                _fail(f"ssm_scan {dtype} Bt,T,Din,N={case} disagrees with its plain version "
+                      f"(max_abs_err {err:.3e}, tol {SSM_TOL[dtype]})")
+            if case[2] != 8192:
+                continue
+            print(f"kernel ssm_scan {dtype} jamba Bt,T,Din,N={case}: y, hT max_abs_err="
+                  f"{err:.3e} tol={SSM_TOL[dtype]} ok")
+            bt, t, din, n = case
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            ks.ssm_scan_plain(*args)
+            stop.record()
+            torch.cuda.synchronize()
+            t_exp = bt * t * din * n
+            row = dict(max_abs_err=err,
+                       ms=_time_ms(torch, lambda: ks.ssm_scan_hopper(*args)),
+                       plain_ms=start.elapsed_time(stop), library_ms=None,
+                       bound=_bound(6.0 * t_exp, _nbytes(*args, *got), "float32",
+                                    exps=t_exp))
+            print(f"time ssm_scan {dtype} (jamba shape): kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms (one call), library none, bound "
+                  f"{row['bound'][0]:.5f} ms ({row['bound'][1]})")
+            if dtype == "bfloat16":
+                timed = row
+    print(f"kernel ssm_scan: {2 * len(cases)} cases ok (Bt 2, T 1-300, Din 64/200, N 4-16, "
+          f"and the jamba shape), max_abs_err fp32 {worst['float32']:.3e}, "
+          f"bf16 {worst['bfloat16']:.3e}")
+    return timed
+
+
 # --------------------------------------------------------------------------- #
 # phase 4: full-width fp32 model, kernel path vs plain path
 # --------------------------------------------------------------------------- #
 
 
-def model_phase(torch, dev):
-    from repro_torch.config import get_config
+def model_phase(torch, dev, cfg, label):
+    """Prefill of a MODEL_PROMPT-token prompt + 4 decode steps through the
+    hand kernels and through the plain oracles on one set of fp32 weights."""
     from repro_torch.models import registry
 
-    cfg = dataclasses.replace(get_config(ARCH), dtype="float32", param_dtype="float32")
     kernel = registry.build(cfg, max_seq=MAX_SEQ, device=dev)
     plain = registry.build(dataclasses.replace(cfg, attention_impl="oracle"),
                            max_seq=MAX_SEQ, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = kernel.init(gen)
+    print(f"model {label}: {sum(t.numel() for t in model.state_dict().values()) / 1e9:.3f} B "
+          f"parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     tokens = torch.randint(0, cfg.vocab_size, (1, MODEL_PROMPT), generator=gen, device=dev)
     with torch.inference_mode():
         lk, ck, pos = kernel.prefill(model, {"tokens": tokens})
@@ -205,13 +291,20 @@ def model_phase(torch, dev):
             steps.append((f"decode{i}", lk, lp))
         for name, a, b in steps:
             if a.shape != (1, cfg.vocab_size) or not torch.isfinite(a).all():
-                _fail(f"model {name} logits: shape {tuple(a.shape)} or not finite")
+                _fail(f"model {label} {name} logits: shape {tuple(a.shape)} or not finite")
             err, ok = _close(a, b, MODEL_TOL)
-            print(f"model fp32 {name}: max |logit err| {err:.3e} (logit scale "
+            print(f"model {label} {name}: max |logit err| {err:.3e} (logit scale "
                   f"{b.abs().max().item():.3f}) tol={MODEL_TOL} {'ok' if ok else 'FAIL'}")
             if not ok:
-                _fail(f"full-width fp32 {name}: kernel path disagrees with plain path")
+                _fail(f"full-width {label} {name}: kernel path disagrees with plain path")
     del model, ck, cp
+    _free(torch)
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -281,22 +374,26 @@ def engine_phase(torch):
               f"({layers}/prefill), decode_attention {total[1]} ({layers}/decode step)")
         if total != want:
             _fail(f"engine run launches {total} != {want}")
-        profile_serve(torch, eng, prompts[1])
+        profile_serve(torch, lambda: _wall(eng.serve(prompts[1], decode_steps=DECODE_STEPS)[1]))
     return {"flash_attention": total[0], "decode_attention": total[1]}
 
 
-def profile_serve(torch, eng, prompt):
+def _wall(stats) -> float:
+    return stats.prefill_s + stats.decode_s
+
+
+def profile_serve(torch, serve):
     """Device busy share and kernel time by name over one warm request: the
-    wall time from an unprofiled request, the kernel time from a traced one."""
+    wall time from an unprofiled request, the kernel time from a traced one.
+    ``serve()`` runs one request and returns its wall seconds."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, st = eng.serve(prompt, decode_steps=DECODE_STEPS)
-    wall_us = (st.prefill_s + st.decode_s) * 1e6
+    wall_us = serve() * 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.serve(prompt, decode_steps=DECODE_STEPS)
+        serve()
     by_name = defaultdict(lambda: [0.0, 0])
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -310,6 +407,124 @@ def profile_serve(torch, eng, prompt):
           f"kernel time {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"profile   {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+
+
+# --------------------------------------------------------------------------- #
+# the hybrid family: one full-width Jamba period
+# --------------------------------------------------------------------------- #
+
+
+def hybrid_model_phase(torch, dev):
+    """Phase 4 on the one-period Jamba in fp32, with the smallest gap between
+    the k-th and (k+1)-th router probability met on either path: a gap near
+    the paths' ~1e-6 difference could route them apart without a kernel fault."""
+    from repro_torch.config import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    dispatch, gap = moe._dispatch_group, [float("inf")]
+
+    def tracked(x, p, c):
+        probs = torch.softmax(x.float() @ p.router, dim=-1)
+        top = probs.topk(c.moe.top_k + 1, dim=-1).values
+        gap[0] = min(gap[0], (top[:, -2] - top[:, -1]).min().item())
+        return dispatch(x, p, c)
+
+    moe._dispatch_group = tracked
+    try:
+        model_phase(torch, dev, cfg, f"{HYBRID} x{HYBRID_LAYERS} layers fp32")
+    finally:
+        moe._dispatch_group = dispatch
+    print(f"model {HYBRID} fp32: smallest top-{cfg.moe.top_k} / top-{cfg.moe.top_k + 1} "
+          f"router probability gap met {gap[0]:.3e}")
+
+
+def hybrid_serve_phase(torch, dev):
+    """The one-period Jamba in bf16 through registry.build's entry points,
+    served by the engine's request loop (``engine.generate``): a warm-up (as
+    the engine's code_init), then 3 requests with exact launch counts (the
+    main path), then one traced request."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import generate
+
+    cfg = dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_LAYERS)
+    n_ssm = cfg.layer_pattern.count("M")
+    n_attn = cfg.layer_pattern.count("A")
+    bundle = registry.build(cfg, max_seq=MAX_SEQ, device=dev)
+    t0 = time.perf_counter()
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    print(f"hybrid {HYBRID} x{HYBRID_LAYERS} layers bf16: weights {weights / 1e9:.3f} GB, "
+          f"init from seed 0 on the card {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, MAX_SEQ)) for _ in range(REQUESTS)]
+    generate(bundle, model, prompts[0], decode_steps=1)         # warm-up
+
+    def counts():
+        return ks.launches, kf.launches, kd.launches
+
+    per_request = (n_ssm, n_attn, n_attn * DECODE_STEPS)
+    ks.launches = kf.launches = kd.launches = 0                 # the main path starts here
+    for i, p in enumerate(prompts):
+        c = counts()
+        out, st = generate(bundle, model, p, decode_steps=DECODE_STEPS)
+        got = tuple(a - b for a, b in zip(counts(), c))
+        print(f"hybrid serve {i}: prefill {st.prefill_s * 1e3:.2f} ms, decode "
+              f"{st.decode_s * 1e3:.2f} ms for {st.tokens} tokens "
+              f"({st.decode_s / st.tokens * 1e3:.3f} ms/token), "
+              f"tokens {out[0].tolist()}; launches ssm_scan, flash_attention, "
+              f"decode_attention {got} (expected {per_request})")
+        if got != per_request:
+            _fail(f"hybrid serve {i} launch counts {got} != {per_request}")
+        if out.shape != (1, DECODE_STEPS) or not ((out >= 0) & (out < cfg.vocab_size)).all():
+            _fail(f"hybrid serve {i} tokens out of range: {out}")
+    total = counts()                                            # read just after the main path
+    if min(total) == 0:
+        _fail(f"a kernel of the hybrid path was never launched: {total}")
+    profile_serve(torch, lambda: _wall(generate(bundle, model, prompts[1],
+                                                decode_steps=DECODE_STEPS)[1]))
+    del model
+    _free(torch)
+    return total[0]
+
+
+def hybrid_engine_phase(torch):
+    """InferenceEngine on jamba SMOKE (2 layers AM; SMOKE size, not a
+    measurement): cold start, serve, scale to zero, snapshot restore, serve."""
+    import numpy as np
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.serving.engine import InferenceEngine, SnapshotStore
+
+    def counts():
+        return ks.launches, kf.launches, kd.launches
+
+    with tempfile.TemporaryDirectory() as snapdir:
+        eng = InferenceEngine(HYBRID, smoke=True, store=SnapshotStore(snapdir), device="cuda")
+        prompt = np.random.default_rng(1).integers(0, 512, (1, eng.max_seq))
+        c = counts()
+        bd = eng.cold_start()
+        warm = tuple(a - b for a, b in zip(counts(), c))
+        print(f"hybrid SMOKE engine cold_start: {bd}; launches in the warm-up (ssm_scan, "
+              f"flash_attention, decode_attention) {warm}")
+        if warm != (1, 1, 1):
+            _fail(f"hybrid SMOKE warm-up launches {warm} != (1, 1, 1)")
+        first, _ = eng.serve(prompt, decode_steps=DECODE_STEPS)
+        eng.shutdown()
+        bd2 = eng.cold_start(from_snapshot=True)
+        again, _ = eng.serve(prompt, decode_steps=DECODE_STEPS)
+        print(f"hybrid SMOKE engine restore: {bd2}; tokens {first[0].tolist()} then "
+              f"{again[0].tolist()}")
+        if not np.array_equal(first, again):
+            _fail(f"hybrid SMOKE tokens after restore {again} != {first}")
 
 
 # --------------------------------------------------------------------------- #
@@ -565,6 +780,7 @@ def _spot_check(torch):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's check needs one card", file=sys.stderr)
         return 1
@@ -592,15 +808,24 @@ def main() -> int:
         print(f"ptxas {name}: {len(regs)} kernels, registers <= {max(regs, default=0)}, "
               f"spill stores <= {max(spills, default=0)} bytes")
 
+    from repro_torch.config import get_config
+
     timed = kernel_phase(torch, dev)
-    model_phase(torch, dev)
+    timed["ssm_scan"] = ssm_kernel_phase(torch, dev)
+    model_phase(torch, dev, dataclasses.replace(get_config(ARCH), dtype="float32",
+                                                param_dtype="float32"), f"{ARCH} fp32")
     launches = engine_phase(torch)
+    _free(torch)
+    hybrid_model_phase(torch, dev)
+    launches["ssm_scan"] = hybrid_serve_phase(torch, dev)
+    hybrid_engine_phase(torch)
     cluster_phase(torch, dev)
     launches["cluster_step"], timed["cluster_step"] = batch_phase(torch, dev)
 
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
                 "decode_attention": "src/repro/kernels/decode_attention.py:57",
-                "cluster_step": "src/repro/kernels/cluster_step.py:237"}
+                "cluster_step": "src/repro/kernels/cluster_step.py:237",
+                "ssm_scan": "src/repro/kernels/ssm_scan.py:62"}
     kernels = []
     for name, t in timed.items():
         kernels.append({
@@ -610,6 +835,7 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"]})
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

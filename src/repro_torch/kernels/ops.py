@@ -1,4 +1,4 @@
-"""Kernel entry points (the port of ``repro.kernels.ops``, attention half).
+"""Kernel entry points (the port of ``repro.kernels.ops``).
 
 Same signatures and defaults as the JAX package.  Each op has two paths:
 
@@ -6,7 +6,7 @@ Same signatures and defaults as the JAX package.  Each op has two paths:
   kernel for a CUDA tensor, its plain torch version for a CPU tensor;
 * ``impl="oracle"`` — the naive oracles in ``ref.py``.
 
-``ssm_scan`` / ``ssm_step`` come with the SSM slice.
+``ssm_step`` is plain torch, as it is plain jnp in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_hopper
 from repro_torch.kernels.flash_attention import flash_attention_hopper
+from repro_torch.kernels.ssm_scan import ssm_scan_hopper
 
 IMPLS = ("reference", "pallas", "oracle")
 
@@ -51,3 +52,27 @@ def decode_attention(q, k_cache, v_cache, valid_mask, *, impl: str = "reference"
     if impl == "oracle":
         return _ref.decode_attention_ref(q, k_cache, v_cache, valid_mask)
     return decode_attention_hopper(q, k_cache, v_cache, valid_mask)
+
+
+def ssm_scan(u, delta, A, B, C, D, h0, *, chunk: int = 256,
+             impl: str = "reference"):
+    """Mamba-1 selective scan.  See ``ref.ssm_scan_ref`` for semantics.
+
+    ``chunk`` is taken for the JAX signature; the hand kernel stages its own
+    chunks of time.  Strided views (the splits of a projection) are made
+    contiguous here: the kernel's wrapper takes contiguous tensors only.
+    """
+    del chunk
+    _check_impl(impl)
+    if impl == "oracle":
+        return _ref.ssm_scan_ref(u, delta, A, B, C, D, h0)
+    return ssm_scan_hopper(*(x.contiguous() for x in (u, delta, A, B, C, D, h0)))
+
+
+def ssm_step(u, delta, A, B, C, D, h):
+    """Single decode step of the selective scan: (B, Din) inputs, fp32 state."""
+    uf, df = u.float(), delta.float()
+    h = torch.exp(df[..., None] * A.float()[None]) * h \
+        + (df * uf)[..., None] * B.float()[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, C.float()) + uf * D.float()[None]
+    return y.to(u.dtype), h

@@ -1,10 +1,10 @@
 """Naive torch oracles for the hand kernels (the port of
-``repro.kernels.ref``: the attention half and the cluster-step half).
+``repro.kernels.ref``: attention, the cluster step and the selective scan).
 
 Deliberately naive (O(S^2) score materialisation, repeated kv heads, a
-one-hot select per table lookup): they are the correctness reference that
-the plain versions and the hand kernels are held against.  The SSM half
-comes with its slice.
+one-hot select per table lookup, a step-by-step scan): they are the
+correctness reference that the plain versions and the hand kernels are held
+against.
 """
 from __future__ import annotations
 
@@ -371,3 +371,22 @@ def cluster_step_ref(nw, fs, free, arrivals, conc, now, fparam, promote,
         nw, fs, free, arrivals, conc, now, fparam, promote, dwell, ntier,
         frac, scal)
     return nw, fs, free, agg
+
+
+def ssm_scan_ref(u, delta, A, B, C, D, h0):
+    """Mamba-1 selective-scan oracle (sequential over time, fp32 state).
+
+    u, delta: (Batch, T, Din); A: (Din, N); B, C: (Batch, T, N); D: (Din,);
+    h0: (Batch, Din, N).  Returns (y (Batch, T, Din) in u's dtype, hT fp32).
+    Discretisation: h_t = exp(delta_t * A) * h_{t-1} + delta_t * B_t * u_t.
+    """
+    uf, df, Af, Bf, Cf = (x.float() for x in (u, delta, A, B, C))
+    h = h0.float()
+    ys = []
+    for t in range(u.shape[1]):
+        d_t = df[:, t]
+        decay = torch.exp(d_t[..., None] * Af[None])           # (Bt, Din, N)
+        h = decay * h + (d_t * uf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + uf * D.float()[None, None]
+    return y.to(u.dtype), h

@@ -1,5 +1,6 @@
-"""Decoder-only language model (port of ``repro.models.lm``, dense "A"
-stacks).  Vision inputs and the training loss come with later slices."""
+"""Decoder-only language model (port of ``repro.models.lm``): attention and
+Mamba blocks with dense or MoE FFNs.  Vision inputs and the training loss
+come with later slices."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,8 +13,10 @@ from repro_torch.models import layers, transformer
 
 class LM(nn.Module):
     """Parameters of the LM.  ``state_dict`` keys: ``embed``,
-    ``blocks.<layer>.{norm1,attn,norm2,ffn}.<leaf>``, ``norm_f.<leaf>`` and,
-    for untied configs, ``unembed`` — every dense weight ``(in, out)``."""
+    ``blocks.<layer>.{norm1,attn|ssm,norm2,ffn|moe}.<leaf>`` (MoE: ``router``,
+    ``wi``, ``wg``, ``wo`` stacked over experts, ``dense.<leaf>``),
+    ``norm_f.<leaf>`` and, for untied configs, ``unembed`` — every dense
+    weight ``(in, out)``."""
 
     def __init__(self, cfg, *, device, gen: Optional[torch.Generator] = None):
         super().__init__()
@@ -46,17 +49,19 @@ def _unembed(p: LM, cfg, x):
 
 
 def _hidden(p: LM, cfg, batch, *, window=None):
-    """Final-norm hidden states (B, S, d) and per-layer cache material."""
+    """Final-norm hidden states (B, S, d), the MoE aux loss and per-layer
+    cache material."""
     x = _embed_tokens(p, cfg, batch["tokens"])
     q_pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
-    x, caches = transformer.stack_full(p.blocks, x, cfg, q_pos=q_pos, window=window)
-    return layers.norm_apply(p.norm_f, x, cfg.norm), caches
+    x, aux, caches = transformer.stack_full(p.blocks, x, cfg, q_pos=q_pos,
+                                            window=window)
+    return layers.norm_apply(p.norm_f, x, cfg.norm), aux, caches
 
 
 def lm_forward(p: LM, cfg, batch, *, window=None):
-    """Full-sequence forward: returns (logits (B, S, V) fp32, caches)."""
-    x, caches = _hidden(p, cfg, batch, window=window)
-    return _unembed(p, cfg, x), caches
+    """Full-sequence forward: returns (logits (B, S, V) fp32, aux, caches)."""
+    x, aux, caches = _hidden(p, cfg, batch, window=window)
+    return _unembed(p, cfg, x), aux, caches
 
 
 def lm_prefill(p: LM, cfg, batch, *, max_seq: int, window=None):
@@ -65,7 +70,7 @@ def lm_prefill(p: LM, cfg, batch, *, max_seq: int, window=None):
     Only the last position is unembedded: the same numbers as the JAX
     package's full forward sliced at -1, without the (B, S, V) fp32 tensor.
     """
-    x, raw = _hidden(p, cfg, batch, window=window)
+    x, _, raw = _hidden(p, cfg, batch, window=window)
     seq_len = x.shape[1]
     caches = _format_caches(cfg, raw, seq_len=seq_len, max_seq=max_seq,
                             window=window)
@@ -82,10 +87,14 @@ def _pad_seq(t, s_cache: int):
 
 
 def _format_caches(cfg, raw_caches, *, seq_len: int, max_seq: int, window):
-    """Pack per-layer prefill keys/values into the fixed decode layout."""
+    """Pack per-layer prefill keys/values into the fixed decode layout;
+    recurrent (Mamba) states are decode-ready and pass through."""
     s_cache = min(window, max_seq) if window else max_seq
     out = []
-    for c in raw_caches:
+    for kind, c in zip(cfg.layer_pattern, raw_caches):
+        if kind != "A":
+            out.append(c)
+            continue
         k, v = c["k"], c["v"]                  # (B, S, hkv, hd)
         if window and s_cache <= window and seq_len >= s_cache:
             # ring layout: absolute position p lives in slot p % w; the kept

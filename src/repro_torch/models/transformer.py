@@ -3,13 +3,13 @@
 The JAX package stacks parameters over the repeats of a block *period* and
 runs them under ``lax.scan``; PyTorch runs eagerly, so here the layers are an
 ``nn.ModuleList`` walked by a Python loop and each layer keeps its own cache.
-This slice ports the ``"A"`` block (GQA attention + dense FFN).  Mamba
-(``M``), xLSTM (``L``/``S``) and MoE blocks raise ``NotImplementedError``:
-they come with ROADMAP item A5.
+Each block is a mixer — GQA attention (``"A"``) or Mamba (``"M"``) — and a
+dense or routed-MoE FFN.  xLSTM blocks (``L``/``S``) raise
+``NotImplementedError``: they come with ROADMAP item A5.
 
 Modes:
   full   — prefill over (B, S); returns per-layer cache material
-  decode — one token against per-layer caches
+  decode — one token against per-layer caches / recurrent states
 """
 from __future__ import annotations
 
@@ -19,10 +19,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 
-from repro_torch.models import attention, layers
-
-_LATER = ("is not ported yet: Mamba, xLSTM and MoE blocks come with ROADMAP "
-          "item A5 (the remaining model families)")
+from repro_torch.models import attention, layers, mamba, moe
 
 
 # --------------------------------------------------------------------------- #
@@ -48,11 +45,12 @@ def _block_meta(cfg) -> List[Dict[str, Any]]:
     pat = cfg.layer_pattern
     out = []
     for i in range(per):
-        if pat[i] != "A":
-            raise NotImplementedError(f"{cfg.name}: block kind {pat[i]!r} {_LATER}")
-        if moe_mask[i]:
-            raise NotImplementedError(f"{cfg.name}: the MoE FFN {_LATER}")
-        out.append({"kind": pat[i], "ffn": "dense" if cfg.d_ff else "none"})
+        if pat[i] not in "AM":
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {pat[i]!r} is not ported yet: xLSTM "
+                "blocks come with ROADMAP item A5 (the remaining model families)")
+        ffn = "moe" if moe_mask[i] else ("dense" if cfg.d_ff else "none")
+        out.append({"kind": pat[i], "ffn": ffn})
     return out
 
 
@@ -62,15 +60,24 @@ def _block_meta(cfg) -> List[Dict[str, Any]]:
 
 
 class Block(nn.Module):
+    """``norm1`` + ``attn`` or ``ssm``; ``norm2`` + ``ffn`` or ``moe`` (the
+    JAX tree's names)."""
+
     def __init__(self, cfg, meta, *, device, gen: Optional[torch.Generator] = None):
         super().__init__()
         self.norm1 = layers.norm_init(cfg.d_model, cfg.norm, cfg.param_dtype, device=device)
-        self.attn = attention.Attention(cfg, device=device, gen=gen)
-        if meta["ffn"] == "dense":
+        if meta["kind"] == "A":
+            self.attn = attention.Attention(cfg, device=device, gen=gen)
+        else:
+            self.ssm = mamba.Mamba(cfg, device=device, gen=gen)
+        if meta["ffn"] != "none":
             self.norm2 = layers.norm_init(cfg.d_model, cfg.norm, cfg.param_dtype,
                                           device=device)
+        if meta["ffn"] == "dense":
             self.ffn = layers.MLP(cfg.d_model, cfg.d_ff, cfg.act, cfg.param_dtype,
                                   device=device, gen=gen)
+        elif meta["ffn"] == "moe":
+            self.moe = moe.MoE(cfg, device=device, gen=gen)
 
 
 def init_stack(gen: Optional[torch.Generator], cfg, *, device) -> nn.ModuleList:
@@ -81,26 +88,37 @@ def init_stack(gen: Optional[torch.Generator], cfg, *, device) -> nn.ModuleList:
 
 
 def _apply_ffn(p: Block, x, cfg):
+    """x + FFN(norm2(x)).  Returns (x, MoE aux loss; 0.0 without MoE)."""
+    if not hasattr(p, "norm2"):
+        return x, 0.0
+    h = layers.norm_apply(p.norm2, x, cfg.norm)
     if hasattr(p, "ffn"):
-        h = layers.norm_apply(p.norm2, x, cfg.norm)
-        x = x + layers.mlp_apply(p.ffn, h, cfg.act)
-    return x
+        return x + layers.mlp_apply(p.ffn, h, cfg.act), 0.0
+    y, aux = moe.moe_ffn(p.moe, h, cfg)
+    return x + y, aux
 
 
 def _block_full(p: Block, x, cfg, q_pos, window):
-    """Full-sequence block.  Returns (x, cache_material)."""
+    """Full-sequence block.  Returns (x, aux, cache_material)."""
     h = layers.norm_apply(p.norm1, x, cfg.norm)
-    y, (k, v) = attention.full_attention(p.attn, h, cfg, q_pos=q_pos,
-                                         window=window, return_kv=True)
-    x = _apply_ffn(p, x + y, cfg)
-    return x, {"k": k, "v": v}
+    if hasattr(p, "attn"):
+        y, (k, v) = attention.full_attention(p.attn, h, cfg, q_pos=q_pos,
+                                             window=window, return_kv=True)
+        cache = {"k": k, "v": v}
+    else:
+        y, cache = mamba.mamba_forward(p.ssm, h, cfg)
+    x, aux = _apply_ffn(p, x + y, cfg)
+    return x, aux, cache
 
 
 def _block_decode(p: Block, x, cfg, pos, window, cache):
     """One-token block.  x: (B, d).  Returns (x, new_cache)."""
     h = layers.norm_apply(p.norm1, x, cfg.norm)
-    y, cache = attention.decode_attention(p.attn, h, cache, pos, cfg, window=window)
-    x = _apply_ffn(p, (x + y)[:, None, :], cfg)
+    if hasattr(p, "attn"):
+        y, cache = attention.decode_attention(p.attn, h, cache, pos, cfg, window=window)
+    else:
+        y, cache = mamba.mamba_step(p.ssm, h, cache, cfg)
+    x, _ = _apply_ffn(p, (x + y)[:, None, :], cfg)
     return x[:, 0, :], cache
 
 
@@ -110,12 +128,14 @@ def _block_decode(p: Block, x, cfg, pos, window, cache):
 
 
 def stack_full(blocks: nn.ModuleList, x, cfg, *, q_pos, window=None):
-    """x: (B, S, d) -> (x, caches), one cache dict per layer."""
+    """x: (B, S, d) -> (x, summed MoE aux loss, caches), one cache per layer."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for p in blocks:
-        x, c = _block_full(p, x, cfg, q_pos, window)
+        x, a, c = _block_full(p, x, cfg, q_pos, window)
+        aux = aux + a
         caches.append(c)
-    return x, caches
+    return x, aux, caches
 
 
 def stack_decode(blocks: nn.ModuleList, x, cfg, *, pos, window=None, caches=None):
@@ -128,7 +148,9 @@ def stack_decode(blocks: nn.ModuleList, x, cfg, *, pos, window=None, caches=None
 
 
 def init_decode_caches(cfg, batch: int, max_seq: int, *, window=None, device):
-    """Allocate one zero cache per layer."""
-    _block_meta(cfg)
+    """Allocate one zero cache (attention) or state (Mamba) per layer."""
+    metas = _block_meta(cfg)
     return [attention.init_cache(cfg, batch, max_seq, window=window, device=device)
-            for _ in range(cfg.num_layers)]
+            if metas[i % len(metas)]["kind"] == "A"
+            else mamba.init_mamba_state(cfg, batch, device=device)
+            for i in range(cfg.num_layers)]

@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.core.lifecycle import Breakdown, Phase
 from repro_torch.device import resolve_device
-from repro_torch.kernels import _build, decode_attention, flash_attention
+from repro_torch.kernels import _build, decode_attention, flash_attention, ssm_scan
 from repro_torch.models import registry
 
 
@@ -123,10 +123,10 @@ class ServeStats:
 
 
 def _kernel_libraries(device: torch.device) -> Tuple[Any, ...]:
-    """Load the hand kernels the engine's path launches (none on the CPU)."""
+    """Load the hand kernels a model's path can launch (none on the CPU)."""
     if device.type != "cuda":
         return ()
-    return (flash_attention.library(), decode_attention.library())
+    return (flash_attention.library(), decode_attention.library(), ssm_scan.library())
 
 
 class InferenceEngine:
@@ -226,21 +226,30 @@ class InferenceEngine:
         if tokens.min() < 0 or tokens.max() >= vocab:
             # an out-of-range id would be a device-side assert in the gather
             raise ValueError(f"token ids must lie in [0, {vocab})")
-        stats = ServeStats()
-        batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(self.device)}
-        t0 = time.perf_counter()
-        logits, caches, pos = self.bundle.prefill(self.params, batch)
-        _sync(self.device)
-        stats.prefill_s = time.perf_counter() - t0
-        out = []
-        tok = logits.argmax(-1)
-        t0 = time.perf_counter()
-        for i in range(decode_steps):
-            out.append(tok.to(torch.int32).cpu().numpy())
-            logits, caches = self.bundle.decode_step(self.params, caches, tok, pos + i)
-            tok = logits.argmax(-1)
-        _sync(self.device)
-        stats.decode_s = time.perf_counter() - t0
-        stats.tokens = decode_steps
+        out, stats = generate(self.bundle, self.params, tokens, decode_steps=decode_steps)
         self.last_used = time.monotonic()
-        return np.stack(out, axis=1), stats
+        return out, stats
+
+
+@torch.inference_mode()
+def generate(bundle: registry.ModelBundle, params, tokens: np.ndarray, *,
+             decode_steps: int) -> Tuple[np.ndarray, ServeStats]:
+    """The engine's request loop on any bundle: one prefill, then greedy
+    decode steps, each part timed up to a device synchronise."""
+    stats = ServeStats()
+    batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(bundle.device)}
+    t0 = time.perf_counter()
+    logits, caches, pos = bundle.prefill(params, batch)
+    _sync(bundle.device)
+    stats.prefill_s = time.perf_counter() - t0
+    out = []
+    tok = logits.argmax(-1)
+    t0 = time.perf_counter()
+    for i in range(decode_steps):
+        out.append(tok.to(torch.int32).cpu().numpy())
+        logits, caches = bundle.decode_step(params, caches, tok, pos + i)
+        tok = logits.argmax(-1)
+    _sync(bundle.device)
+    stats.decode_s = time.perf_counter() - t0
+    stats.tokens = decode_steps
+    return np.stack(out, axis=1), stats

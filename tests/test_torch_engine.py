@@ -125,3 +125,57 @@ def test_cold_start_from_the_seed_serves(tmp_path):
     assert {p.value for p in bd.seconds} == {p.value for p in STARTUP_PHASES}
     out, _ = e.serve(_prompt(5), decode_steps=2)
     assert out.shape == (1, 2) and ((0 <= out) & (out < 512)).all()
+
+
+# --------------------------------------------------------------------------- #
+# jamba SMOKE: the hybrid family (attention + Mamba layers, MoE FFNs)
+# --------------------------------------------------------------------------- #
+
+HYBRID = "jamba-v0.1-52b"
+
+
+@pytest.fixture(scope="module")
+def hybrid_engines(tmp_path_factory):
+    root = tmp_path_factory.mktemp("hybrid")
+    jeng = JaxEngine(HYBRID, smoke=True, max_seq=MAX_SEQ, batch=1,
+                     store=JaxStore(str(root / "jax")))
+    jeng.cold_start()
+    store = SnapshotStore(str(root / "torch"))
+    teng = InferenceEngine(HYBRID, smoke=True, max_seq=MAX_SEQ, batch=1,
+                           store=store, device="cpu")
+    store.save_params(teng.key, params_from_jax(jax.tree.map(np.asarray, jeng.params)))
+    teng.cold_start(from_snapshot=True)
+    return jeng, teng
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hybrid_greedy_tokens_equal_the_jax_engine(hybrid_engines, seed):
+    jeng, teng = hybrid_engines
+    want, _ = jeng.serve(_prompt(seed), decode_steps=STEPS)
+    got, _ = teng.serve(_prompt(seed), decode_steps=STEPS)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_hybrid_decode_past_max_seq_drops_attention_writes_and_advances_ssm(hybrid_engines):
+    """Past max_seq the attention layer's cache is unchanged (as granite's),
+    while the Mamba layer's conv inputs and state move on, as in JAX."""
+    jeng, teng = hybrid_engines
+    tokens = _prompt(6)
+    jb, tb = jeng.bundle, teng.bundle
+    _, jcaches, _ = jb.prefill(jeng.params, {"tokens": jnp.asarray(tokens)})
+    with torch.inference_mode():
+        tlogits, tcaches, tpos = tb.prefill(teng.params, {"tokens": torch.from_numpy(tokens)})
+        assert tpos == MAX_SEQ
+        tok = tlogits.argmax(-1)
+        tlogits2, tcaches2 = tb.decode_step(teng.params, tcaches, tok, MAX_SEQ)
+    jlogits2, jcaches2 = jb.decode_step(jeng.params, jcaches, jnp.asarray(tok.numpy(), jnp.int32),
+                                        jnp.asarray(MAX_SEQ, jnp.int32))
+    np.testing.assert_allclose(tlogits2.numpy(), np.asarray(jlogits2), atol=1e-4, rtol=1e-4)
+    kinds = teng.bundle.cfg.layer_pattern
+    assert sorted(kinds) == ["A", "M"]
+    for layer, kind in enumerate(kinds):
+        before, after, want = tcaches[layer], tcaches2[layer], jcaches2[layer]
+        for key in after:
+            np.testing.assert_allclose(after[key].numpy(), np.asarray(want[key][0]),
+                                       atol=1e-4, rtol=1e-4, err_msg=f"{kind} {key}")
+            assert torch.equal(before[key], after[key]) == (kind == "A"), (kind, key)

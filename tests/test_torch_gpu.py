@@ -7,7 +7,8 @@ Tolerances are ``tests/test_kernels.py``'s (3e-5 fp32, 5e-2 bf16), with TF32
 off so that the plain version's fp32 products are full fp32.  The cluster step
 is held at ``tests/test_batchsim.py``'s ``rtol=1e-4, atol=1e-2`` on random
 cohort state from ``chip_smoke.random_tables`` (a numpy copy of that test's
-fixture).
+fixture).  The selective scan is held at the scan's 5e-5 (fp32) and 5e-2
+(bf16 u, B, C and y), with a nonzero h0.
 """
 import importlib.util
 from pathlib import Path
@@ -19,6 +20,7 @@ import torch
 from repro_torch.kernels import cluster_step as tcluster
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ssm_scan as tssm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -154,3 +156,63 @@ def test_cluster_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     big = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in big]
     with pytest.raises(ValueError, match="at most"):
         tcluster.cluster_sim_hopper(*big)
+
+
+def _ssm_inputs(bt, t, din, n, dtype, device, seed=0):
+    """u, B, C in ``dtype``; delta, A, D, h0 in fp32 (the Mamba mixer's types)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    arrays = [rng.normal(size=(bt, t, din)), rng.random((bt, t, din)) * 0.1,
+              -(rng.random((din, n)) + 0.5), rng.normal(size=(bt, t, n)),
+              rng.normal(size=(bt, t, n)), rng.normal(size=(din,)),
+              rng.normal(size=(bt, din, n))]
+    out = [torch.from_numpy(a.astype(f32)).to(device) for a in arrays]
+    for i in (0, 3, 4):
+        out[i] = out[i].to(DTYPES[dtype])
+    return out
+
+
+SSM_CASES = [(2, t, din, n) for t in (1, 37, 256, 300) for din in (64, 200) for n in (4, 8, 16)]
+SSM_CASES += [(1, 512, 8192, 16), (3, 65, 96, 32), (1, 40, 24, 5)]   # jamba, N = 32, N odd
+
+
+@pytest.mark.parametrize("case", SSM_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_matches_plain_on_card(cuda, case, dtype):
+    args = _ssm_inputs(*case, dtype, cuda)
+    before = tssm.launches
+    y, h = tssm.ssm_scan_hopper(*args)
+    torch.cuda.synchronize()
+    assert tssm.launches == before + 1
+    want_y, want_h = tssm.ssm_scan_plain(*args)
+    assert y.dtype == args[0].dtype and h.dtype == torch.float32
+    tol = dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" else dict(atol=5e-5, rtol=5e-5)
+    np.testing.assert_allclose(y.float().cpu().numpy(), want_y.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(h.cpu().numpy(), want_h.cpu().numpy(), **tol)
+
+
+def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = _ssm_inputs(2, 8, 16, 4, "float32", cuda)
+    with pytest.raises(ValueError, match="state size"):
+        tssm.ssm_scan_hopper(*_ssm_inputs(1, 4, 8, 33, "float32", cuda))
+    with pytest.raises(ValueError, match="is on"):
+        tssm.ssm_scan_hopper(args[0], args[1].cpu(), *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        u = args[0].transpose(0, 1).contiguous().transpose(0, 1)
+        tssm.ssm_scan_hopper(u, *args[1:])
+    with pytest.raises(ValueError, match="must be"):
+        tssm.ssm_scan_hopper(args[0][0], args[1][0], *args[2:])
+    with pytest.raises(TypeError):
+        tssm.ssm_scan_hopper(args[0].double(), *args[1:])
+    with pytest.raises(TypeError, match="delta"):
+        tssm.ssm_scan_hopper(args[0], args[1].bfloat16(), *args[2:])
+
+
+def test_ssm_scan_on_cpu_tensors_launches_nothing():
+    """A CPU tensor takes the plain version and counts no launch (no card needed)."""
+    args = _ssm_inputs(1, 5, 8, 4, "float32", "cpu")
+    before = tssm.launches
+    y, h = tssm.ssm_scan_hopper(*args)
+    assert tssm.launches == before
+    want_y, want_h = tssm.ssm_scan_plain(*args)
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)

@@ -49,7 +49,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.core.policies.fusion",
                  "repro_torch.core.policies.scheduling",
                  "repro_torch.experiments.catalog", "repro_torch.experiments.cli",
-                 "repro_torch.experiments.__main__", "repro_torch.topology.spec"):
+                 "repro_torch.experiments.__main__", "repro_torch.topology.spec",
+                 # the hybrid Mamba + MoE family's slice
+                 "repro_torch.kernels.ssm_scan", "repro_torch.models.mamba",
+                 "repro_torch.models.moe"):
         assert name in got["modules"]
 
 

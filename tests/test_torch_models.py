@@ -39,6 +39,10 @@ CASES = [
     ("granite3_2b", 16, 32, "pallas"),
     ("h2o_danube3_4b", 96, 128, "reference"),   # window 64: the ring roll runs
     ("qwen25_14b", 16, 32, "reference"),        # QKV bias, rope_theta 1e6
+    ("jamba_v01_52b", 16, 32, "reference"),     # Mamba + attention, MoE every 2nd
+    ("jamba_v01_52b", 16, 32, "pallas"),        # the Pallas scan, interpreted
+    ("qwen3_moe_30b_a3b", 16, 32, "reference"),  # MoE on every layer, no dense FFN
+    ("arctic_480b", 16, 32, "reference"),       # MoE with a dense residual
 ]
 
 
@@ -81,22 +85,27 @@ def test_prefill_and_decode_logits_match_jax(case):
                                           prompt + i)
         np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
                                    err_msg=f"{arch} decode step {i}", **TOL)
-    # the caches agree too (ring slots included): layer l is JAX's [0][l]
+    # the caches agree too (ring slots, Mamba conv inputs and states included):
+    # layer l is JAX's period position l % period, repeat l // period
+    per = ttransformer.period_len(tb.cfg)
     for layer, c in enumerate(tcaches):
-        for kv in ("k", "v"):
-            np.testing.assert_allclose(c[kv].numpy(), np.asarray(jcaches[0][kv][layer]),
-                                       err_msg=f"{arch} layer {layer} {kv}", **TOL)
+        want = jcaches[layer % per]
+        assert set(c) == set(want)
+        for key, t in c.items():
+            np.testing.assert_allclose(t.numpy(), np.asarray(want[key][layer // per]),
+                                       err_msg=f"{arch} layer {layer} {key}", **TOL)
 
 
-@pytest.mark.parametrize("arch", ["granite3_2b", "h2o_danube3_4b"])
+@pytest.mark.parametrize("arch", ["granite3_2b", "h2o_danube3_4b", "jamba_v01_52b"])
 def test_full_forward_logits_match_jax(arch):
     jb, jparams, tb, model = _models(arch, 128, "reference")
     tokens = np.random.default_rng(1).integers(0, tb.cfg.vocab_size, (B, 80)).astype(np.int32)
-    jlogits, _, _ = jlm.lm_forward(jparams, jb.cfg, {"tokens": jnp.asarray(tokens)},
-                                   window=jb.window)
-    tlogits, _ = tlm.lm_forward(model, tb.cfg, {"tokens": torch.from_numpy(tokens)},
-                                window=tb.window)
+    jlogits, jaux, _ = jlm.lm_forward(jparams, jb.cfg, {"tokens": jnp.asarray(tokens)},
+                                      window=jb.window)
+    tlogits, taux, _ = tlm.lm_forward(model, tb.cfg, {"tokens": torch.from_numpy(tokens)},
+                                      window=tb.window)
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), **TOL)   # MoE aux loss (0 without)
 
 
 def test_state_dict_names_match_the_port_model():
@@ -106,6 +115,24 @@ def test_state_dict_names_match_the_port_model():
     assert set(carried) == set(fresh)
     for name, t in fresh.items():
         assert carried[name].shape == t.shape and carried[name].dtype == t.dtype, name
+
+
+@pytest.mark.parametrize("arch", ["jamba_v01_52b", "qwen3_moe_30b_a3b", "arctic_480b"])
+def test_hybrid_and_moe_state_dict_names_match(arch):
+    """params_from_jax flattens the nested ``ssm.*`` and ``moe.dense.*`` leaves
+    into the port's names, with the fp32 leaves (router, dt_w, A_log, ...) kept."""
+    jb, jparams, tb, model = _models(arch, 32, "reference")
+    carried = params_from_jax(jax.tree.map(np.asarray, jparams))
+    fresh = tb.init(torch.Generator().manual_seed(0)).state_dict()
+    assert set(carried) == set(fresh)
+    for name, t in fresh.items():
+        assert carried[name].shape == t.shape and carried[name].dtype == t.dtype, name
+    kinds = {name.split(".")[2] for name in fresh if name.startswith("blocks.")}
+    assert {"jamba_v01_52b": {"norm1", "attn", "ssm", "norm2", "ffn", "moe"},
+            "qwen3_moe_30b_a3b": {"norm1", "attn", "norm2", "moe"},
+            "arctic_480b": {"norm1", "attn", "norm2", "moe"}}[arch] == kinds
+    if arch == "arctic_480b":
+        assert "blocks.0.moe.dense.wi" in fresh
 
 
 @pytest.mark.parametrize("arch", jconfig.ARCH_IDS)
@@ -123,8 +150,7 @@ def test_lifecycle_copy_equals_the_reference():
     assert [t.value for t in tlifecycle.WarmthTier] == [t.value for t in jlifecycle.WarmthTier]
 
 
-@pytest.mark.parametrize("arch", ["jamba_v01_52b", "xlstm_125m", "qwen3_moe_30b_a3b",
-                                  "whisper_large_v3", "internvl2_1b"])
+@pytest.mark.parametrize("arch", ["xlstm_125m", "whisper_large_v3", "internvl2_1b"])
 def test_unported_families_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="A5"):
         tregistry.build_arch(arch, smoke=True, max_seq=16, device="cpu").init(
@@ -140,16 +166,22 @@ def test_granite_full_width_parameter_count():
     assert 2.5e9 < n < 2.6e9
 
 
-@pytest.mark.parametrize("arch,max_seq", [("granite3_2b", 32), ("h2o_danube3_4b", 128)])
+@pytest.mark.parametrize("arch,max_seq", [("granite3_2b", 32), ("h2o_danube3_4b", 128),
+                                          ("jamba_v01_52b", 32)])
 def test_decode_cache_layout_matches_jax(arch, max_seq):
-    """One zero cache per layer, ring-sized (window 64) for SWA configs."""
+    """One zero cache per layer, ring-sized (window 64) for SWA configs; a
+    Mamba layer's is its conv inputs (cfg.dtype) and its fp32 state."""
     jmod, tmod = _configs(arch)
     window = tregistry.resolve_window(tmod.SMOKE, None)
     jc = jtransformer.init_decode_caches(jmod.SMOKE, B, max_seq, window=window)
     tc = ttransformer.init_decode_caches(tmod.SMOKE, B, max_seq, window=window,
                                          device="cpu")
     assert len(tc) == tmod.SMOKE.num_layers
+    per = ttransformer.period_len(tmod.SMOKE)
     for layer, c in enumerate(tc):
-        for kv in ("k", "v"):
-            want = np.asarray(jc[0][kv][layer])
-            assert c[kv].shape == want.shape and not c[kv].any()
+        kind = tmod.SMOKE.layer_pattern[layer]
+        assert set(c) == ({"k", "v"} if kind == "A" else {"conv", "h"})
+        for key, t in c.items():
+            want = np.asarray(jc[layer % per][key][layer // per])
+            assert t.shape == want.shape and not t.any()
+            assert str(t.dtype).split(".")[1] == str(want.dtype), (layer, key)
