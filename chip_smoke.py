@@ -5,11 +5,15 @@
 
 Phases, each fatal on failure:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds every hand kernel from src/repro_torch/kernels/csrc;
+  2. build   — nvcc builds every hand kernel from src/repro_torch/kernels/csrc
+               (ptxas registers and spills; HGMMA / UTMALDG counts in the flash
+               library's SASS);
   3. kernels — each hand kernel against its plain torch version on the card at
-               granite-3-2b's attention shapes (plus windowed and ragged cases),
-               fp32 (TF32 off) and bf16, with the times of the kernel, the plain
-               version and, as a yardstick only, F.scaled_dot_product_attention;
+               the attention head shapes of granite-3-2b, the Jamba period,
+               h2o-danube-3 (D 120) and starcoder2 (48/4 heads, D 128), with
+               windowed and ragged cases, fp32 (TF32 off) and bf16; the bf16
+               times of the kernel, the plain version and, as a yardstick only,
+               F.scaled_dot_product_attention at granite's and Jamba's shapes;
                the selective scan on ragged fixtures and at the one-period
                Jamba prefill shape, fp32 and bf16;
   4. model   — full-width granite-3-2b in fp32, prefill + 4 decode steps through
@@ -99,6 +103,40 @@ def _time_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def _graph_ms(torch, fn, reps: int = 20, iters: int = 10) -> float:
+    """Device ms of one ``fn()``: ``reps`` calls captured in a CUDA graph, the
+    graph replayed ``iters`` times between CUDA events.  Unlike ``_time_ms``
+    it leaves out the host's cost of each call (Python, the wrapper's checks,
+    the launch), which for a kernel of a few microseconds is most of a
+    launch-by-launch loop."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (iters * reps)
+
+
+def _attn_times(torch, kernel, plain, library):
+    """Device ms (CUDA-graph replay) of the kernel, its plain version and the
+    library call, and the kernel's ms launch by launch (host included)."""
+    return dict(ms=_graph_ms(torch, kernel), plain_ms=_graph_ms(torch, plain),
+                library_ms=_graph_ms(torch, library), launch_ms=_time_ms(torch, kernel))
+
+
 def _bound(flops: float, nbytes: float, dtype: str, exps: float = 0.0):
     """Least ms for the work: bytes over HBM's rate against operations, which
     are the larger of the FLOPs over the dtype's peak and the exponentials
@@ -117,6 +155,42 @@ def _nbytes(*tensors) -> int:
 # --------------------------------------------------------------------------- #
 
 
+# attention head shapes (Hq, Hkv, D): granite-3-2b's is the main path's (the
+# kernels line); the one-period Jamba's is timed too; danube's (D 120) and
+# starcoder2's (G * D = 12 x 128) are the shapes the first kernels refused
+ATTN_SHAPES = {"granite": (32, 8, 64), "jamba": (32, 8, 128),
+               "danube": (32, 8, 120), "starcoder2": (48, 4, 128)}
+FLASH_CASES = [  # (shape, name, Sq, Skv, window); prefill is timed where listed in TIMED
+    ("granite", "prefill", 512, 512, None), ("granite", "window128", 512, 512, 128),
+    ("granite", "ragged", 24, 24, None), ("granite", "ragged_suffix", 24, 88, 16),
+    ("jamba", "prefill", 512, 512, None), ("jamba", "ragged_suffix", 100, 300, 64),
+    ("danube", "prefill", 512, 512, None), ("danube", "ragged_window", 77, 77, 32),
+    ("starcoder2", "prefill", 512, 512, None), ("starcoder2", "ragged_suffix", 40, 130, 50)]
+DECODE_CASES = [  # (shape, name, S, mask: None = all valid, else (pos, window))
+    ("granite", "decode", 512, None), ("granite", "window128", 512, (300, 128)),
+    ("granite", "ragged", 24, (20, None)),
+    ("jamba", "decode", 512, None), ("jamba", "window128", 500, (300, 128)),
+    ("danube", "decode", 512, None), ("danube", "window128", 512, (300, 128)),
+    ("starcoder2", "decode", 512, None), ("starcoder2", "ragged", 77, (60, None))]
+TIMED = ("granite", "jamba")
+
+
+def _sass_counts():
+    """HGMMA and UTMALDG instructions in the flash library's SASS: evidence that
+    the bf16 kernel reached the tensor cores and TMA (None where cuobjdump is
+    missing)."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+
+
 def kernel_phase(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as kd
@@ -124,15 +198,11 @@ def kernel_phase(torch, dev):
     from repro_torch.kernels.ref import attention_mask
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    hq, hkv, d = 32, 8, 64                       # granite-3-2b attention
-    flash_cases = [("prefill", 512, 512, None), ("window128", 512, 512, 128),
-                   ("ragged", 24, 24, None), ("ragged_suffix", 24, 88, 16)]
-    decode_cases = [("decode", 512, None), ("window128", 512, (300, 128)),
-                    ("ragged", 24, (20, None))]
     timed = {}
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        for name, sq, skv, window in flash_cases:
+        for shape, name, sq, skv, window in FLASH_CASES:
+            hq, hkv, d = ATTN_SHAPES[shape]
             q = torch.randn((1, sq, hq, d), generator=gen, device=dev).to(tdt)
             k = torch.randn((1, skv, hkv, d), generator=gen, device=dev).to(tdt)
             v = torch.randn((1, skv, hkv, d), generator=gen, device=dev).to(tdt)
@@ -143,23 +213,24 @@ def kernel_phase(torch, dev):
             want = kf.flash_attention_plain(q, k, v, **args)
             torch.cuda.synchronize()
             err, ok = _close(got, want, KERNEL_TOL[dtype])
-            print(f"kernel flash_attention {dtype} {name} Sq={sq} Skv={skv} "
-                  f"window={window}: max_abs_err={err:.3e} tol={KERNEL_TOL[dtype]} "
+            print(f"kernel flash_attention {dtype} {shape} {hq}/{hkv} D={d} {name} Sq={sq} "
+                  f"Skv={skv} window={window}: max_abs_err={err:.3e} tol={KERNEL_TOL[dtype]} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok or not torch.isfinite(got.float()).all():
-                _fail(f"flash_attention {dtype} {name} disagrees with its plain version")
-            if dtype == "bfloat16" and name == "prefill":
+                _fail(f"flash_attention {dtype} {shape} {name} disagrees with its plain version")
+            if dtype == "bfloat16" and name == "prefill" and shape in TIMED:
                 pairs = attention_mask(q_pos, kv_pos, causal=True, window=None).sum().item()
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                timed["flash_attention"] = dict(
+                timed[("flash_attention", shape)] = dict(
                     max_abs_err=err,
-                    ms=_time_ms(torch, lambda: kf.flash_attention_hopper(q, k, v, **args)),
-                    plain_ms=_time_ms(torch, lambda: kf.flash_attention_plain(q, k, v, **args)),
-                    library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True)),
                     bound=_bound(4.0 * pairs * hq * d, _nbytes(q, k, v, got, q_pos, kv_pos),
-                                 dtype))
-        for name, s, mask_kind in decode_cases:
+                                 dtype),
+                    **_attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, **args),
+                                  lambda: kf.flash_attention_plain(q, k, v, **args),
+                                  lambda: F.scaled_dot_product_attention(
+                                      qt, kt, vt, is_causal=True, enable_gqa=True)))
+        for shape, name, s, mask_kind in DECODE_CASES:
+            hq, hkv, d = ATTN_SHAPES[shape]
             q = torch.randn((1, hq, d), generator=gen, device=dev).to(tdt)
             k = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(tdt)
             v = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(tdt)
@@ -176,28 +247,36 @@ def kernel_phase(torch, dev):
             want = kd.decode_attention_plain(q, k, v, mask)
             torch.cuda.synchronize()
             err, ok = _close(got, want, KERNEL_TOL[dtype])
-            print(f"kernel decode_attention {dtype} {name} S={s}: max_abs_err={err:.3e} "
+            print(f"kernel decode_attention {dtype} {shape} {hq}/{hkv} D={d} {name} S={s} "
+                  f"splits={kd.decode_splits(1, s, hkv, kd._sms(0))}: max_abs_err={err:.3e} "
                   f"tol={KERNEL_TOL[dtype]} {'ok' if ok else 'FAIL'}")
             if not ok or not torch.isfinite(got.float()).all():
-                _fail(f"decode_attention {dtype} {name} disagrees with its plain version")
-            if dtype == "bfloat16" and name == "decode":
+                _fail(f"decode_attention {dtype} {shape} {name} disagrees with its plain version")
+            if dtype == "bfloat16" and name == "decode" and shape in TIMED:
                 n_valid = mask.sum().item()
                 kv_rows = n_valid * hkv * d * k.element_size()
                 qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
                 amask = mask[:, None, None, :]
-                timed["decode_attention"] = dict(
+                timed[("decode_attention", shape)] = dict(
                     max_abs_err=err,
-                    ms=_time_ms(torch, lambda: kd.decode_attention_hopper(q, k, v, mask)),
-                    plain_ms=_time_ms(torch, lambda: kd.decode_attention_plain(q, k, v, mask)),
-                    library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=amask, enable_gqa=True)),
                     bound=_bound(4.0 * n_valid * hq * d,
-                                 _nbytes(q, got, mask) + 2 * kv_rows, dtype))
-    for name, t in timed.items():
-        print(f"time {name} bf16 (granite shape): kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
-              f"{t['bound'][0]:.5f} ms ({t['bound'][1]})")
-    return timed
+                                 _nbytes(q, got, mask) + 2 * kv_rows, dtype),
+                    **_attn_times(torch, lambda: kd.decode_attention_hopper(q, k, v, mask),
+                                  lambda: kd.decode_attention_plain(q, k, v, mask),
+                                  lambda: F.scaled_dot_product_attention(
+                                      qt, kt, vt, attn_mask=amask, enable_gqa=True)))
+    for (name, shape), t in timed.items():
+        hq, hkv, d = ATTN_SHAPES[shape]
+        print(f"time {name} bf16 ({shape} shape, {hq}/{hkv} heads, D {d}, S 512), device "
+              f"(graph replay): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
+              f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
+              f"kernel launch by launch (host included) {t['launch_ms']:.4f} ms")
+    hq, hkv, d = ATTN_SHAPES["granite"]
+    print(f"decode_attention splits at granite's decode (B 1, S {MAX_SEQ}, {hkv} kv heads): "
+          f"{kd.decode_splits(1, MAX_SEQ, hkv, kd._sms(0))} -> "
+          f"{kd.decode_splits(1, MAX_SEQ, hkv, kd._sms(0)) * hkv} blocks "
+          f"(B * Hkv = {hkv}) on {kd._sms(0)} SMs")
+    return {name: t for (name, shape), t in timed.items() if shape == "granite"}
 
 
 def _ssm_inputs(torch, gen, bt, t, din, n, dtype):
@@ -807,6 +886,9 @@ def main() -> int:
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
         print(f"ptxas {name}: {len(regs)} kernels, registers <= {max(regs, default=0)}, "
               f"spill stores <= {max(spills, default=0)} bytes")
+    sass = _sass_counts()
+    print("sass flash_attention: " + ("not measured (no cuobjdump)" if sass is None else
+                                      ", ".join(f"{op} {n}" for op, n in sass.items())))
 
     from repro_torch.config import get_config
 

@@ -112,6 +112,20 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         return lib
 
 
+def call(device, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` current and the raw handle of its
+    current stream last: a C entry that launches on PyTorch's stream.  The
+    device is switched only when it is not already current (a switch costs
+    microseconds, and the attention kernels run once a layer a token)."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     """Raise if a C entry returned a CUDA error."""
     if code != 0:

@@ -108,11 +108,9 @@ def cluster_sim_hopper(nw, fs, free, arrivals, conc, fparam, promote, dwell,
     t, k = arrivals.shape[1], dwell.shape[2]
     nw_out, fs_out, free_out = (torch.empty_like(x) for x in (nw, fs, free))
     agg = torch.empty((c, R.AG_N), dtype=torch.float32, device=nw.device)
-    with torch.cuda.device(nw.device):
-        code = lib.cluster_step_fwd(
-            *(x.data_ptr() for x in args), nw_out.data_ptr(), fs_out.data_ptr(),
-            free_out.data_ptr(), agg.data_ptr(), c, f, w, k, t,
-            torch.cuda.current_stream(nw.device).cuda_stream)
+    code = _build.call(
+        nw.device, lib.cluster_step_fwd, *(x.data_ptr() for x in args), nw_out.data_ptr(),
+        fs_out.data_ptr(), free_out.data_ptr(), agg.data_ptr(), c, f, w, k, t)
     _build.check(lib, "cluster_step", code)
     launches += 1
     return nw_out, fs_out, free_out, agg

@@ -3,11 +3,17 @@ wrapper and its plain torch version.
 
 Replaces ``repro.kernels.decode_attention.decode_attention_pallas``.  The
 wrapper launches the kernel for a CUDA tensor (or raises) and runs
-:func:`decode_attention_plain` for a CPU tensor; nothing falls back.
+:func:`decode_attention_plain` for a CPU tensor; nothing falls back.  The
+kernel splits the cache across blocks (:func:`decode_splits`) and combines
+the fp32 partials in a second device kernel of the same C call, into scratch
+that the wrapper allocates.  :func:`shape_error` is its shape rule, pure
+Python, so the CPU tests can hold every model config to it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -17,11 +23,60 @@ from repro_torch.kernels.ref import NEG_INF
 launches = 0   # kernel launches; chip_smoke.py resets and reads it
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"decode_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        ctypes.c_float, _I, _P)}
+_SIGNATURES = {"decode_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, ctypes.c_float, _I, _P)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-MAX_GROUP_WIDTH = 1024    # G * D: accumulator outputs one block holds
+MIN_CHUNK = 32            # cache rows a split takes at least
+H100_SMS = 132
+# a split block's shared memory (csrc/decode_attention.cu, split_smem_bytes):
+# 128 threads, two stages of 32-row K / V tiles, 16-byte vectors of at most 8
+# elements, elements of at most 4 bytes
+_THREADS, _TILE, _STAGES, _VEC, _ELEM = 128, 32, 2, 8, 4
+MAX_SPLITS = 512
+MAX_SHARED = 232448       # bytes a block may take on sm_90
+_GRID_YZ = 65535
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_splits(b: int, s: int, hkv: int, sms: int = H100_SMS) -> int:
+    """Cache chunks a call splits each (batch, kv head) into: about two blocks
+    an SM over the B * Hkv pairs, each chunk at least MIN_CHUNK rows, none
+    empty."""
+    want = -(-2 * sms // max(1, b * hkv))
+    splits = max(1, min(want, -(-s // MIN_CHUNK), MAX_SPLITS))
+    chunk = -(-s // splits)
+    return -(-s // chunk)
+
+
+def split_smem_bytes(g: int, d: int) -> int:
+    """Shared memory of one split block, at most: two stages of K and V tiles
+    (32 rows of D), then fp32 q and acc (G D each), the scores (G x 32), the
+    tile's mask (32), m / l / corr (3 G) and the P V shares (max(G D, 128 x 8))."""
+    return (_ELEM * _STAGES * 2 * _TILE * d
+            + 4 * (2 * g * d + g * _TILE + _TILE + 3 * g + max(g * d, _THREADS * _VEC)))
+
+
+@functools.lru_cache(maxsize=1024)
+def shape_error(b: int, s: int, hq: int, hkv: int, d: int) -> Optional[str]:
+    """Why the kernel cannot take this shape, or None if it can.
+
+    q (b, hq, d) against caches (b, s, hkv, d): any cache length, any grouping
+    hq = G * hkv (no cap on G * D short of the block's shared memory), any head
+    dim that is a multiple of 8 from 8 to 128 (16-byte vectors).
+    """
+    if min(b, s) < 1:
+        return f"empty batch or cache (B {b}, S {s})"
+    if hkv < 1 or hq % hkv:
+        return f"{hq} q heads do not group over {hkv} kv heads"
+    if d < 8 or d > MAX_HEAD_DIM or d % 8:
+        return f"head_dim {d} is not a multiple of 8 from 8 to {MAX_HEAD_DIM}"
+    if split_smem_bytes(hq // hkv, d) > MAX_SHARED:
+        return (f"{hq // hkv} q heads of head_dim {d} a kv head need "
+                f"{split_smem_bytes(hq // hkv, d)} bytes of shared memory (> {MAX_SHARED})")
+    if hkv > _GRID_YZ or b > _GRID_YZ:
+        return f"{hkv} kv heads or batch {b} exceed the grid ({_GRID_YZ})"
+    return None
 
 
 def decode_attention_plain(q, k_cache, v_cache, valid_mask):
@@ -53,14 +108,12 @@ def _check(q, k_cache, v_cache, valid_mask):
         raise ValueError("q must be (B, Hq, D) and the caches (B, S, Hkv, D)")
     b, hq, d = q.shape
     _, s, hkv, dk = k_cache.shape
-    if k_cache.shape[0] != b or dk != d or hq % hkv:
+    if k_cache.shape[0] != b or dk != d:
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, "
                          f"cache {tuple(k_cache.shape)}")
-    if d > MAX_HEAD_DIM or (hq // hkv) * d > MAX_GROUP_WIDTH:
-        raise ValueError(f"head_dim {d} with {hq // hkv} q heads per kv head "
-                         f"exceeds the kernel's block ({MAX_GROUP_WIDTH} outputs)")
-    if s == 0:
-        raise ValueError("empty cache")
+    err = shape_error(b, s, hq, hkv, d)
+    if err is not None:
+        raise ValueError(err)
     if valid_mask.shape != (b, s) or valid_mask.dtype != torch.bool:
         raise ValueError("valid_mask must be a (B, S) bool tensor")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
@@ -69,6 +122,13 @@ def _check(q, k_cache, v_cache, valid_mask):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name != "valid_mask" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte loads)")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_hopper(q, k_cache, v_cache, valid_mask):
@@ -84,13 +144,14 @@ def decode_attention_hopper(q, k_cache, v_cache, valid_mask):
     _check(q, k_cache, v_cache, valid_mask)
     lib = library()
     b, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    splits = decode_splits(b, s, hkv, _sms(q.device.index or 0))
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        code = lib.decode_attention_fwd(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            valid_mask.data_ptr(), out.data_ptr(), b, k_cache.shape[1], hq,
-            k_cache.shape[2], d, 1.0 / (d ** 0.5), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    scratch = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32, device=q.device)
+    code = _build.call(
+        q.device, lib.decode_attention_fwd, q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), valid_mask.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        b, s, hq, hkv, d, splits, 1.0 / (d ** 0.5), _DTYPES[q.dtype])
     _build.check(lib, "decode_attention", code)
     launches += 1
     return out

@@ -1,13 +1,18 @@
-"""Flash-attention forward: the hand kernel (``csrc/flash_attention.cu``),
-its wrapper and its plain torch version.
+"""Flash-attention forward: the hand kernels (``csrc/flash_attention.cu``),
+their wrapper and their plain torch version.
 
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas``.  The
-wrapper launches the kernel for a CUDA tensor (or raises) and runs
-:func:`flash_attention_plain` for a CPU tensor; nothing falls back.
+wrapper launches a kernel for a CUDA tensor (or raises) and runs
+:func:`flash_attention_plain` for a CPU tensor; nothing falls back.  The C
+entry picks the kernel by dtype: bf16 runs on the tensor cores (TMA copies,
+wgmma products), fp32 on the plain-FMA kernel (tensor cores would round fp32
+to TF32).  :func:`shape_error` is the shape rule of both, pure Python, so the
+CPU tests can hold every model config to it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -21,7 +26,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _I, _I, ctypes.c_float, _I, _P)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+MAX_HEAD_DIM = 128
+_GRID_YZ = 65535          # CUDA's limit on gridDim.y and gridDim.z
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -46,7 +52,30 @@ def library():
     return _build.load("flash_attention", _SIGNATURES)
 
 
-def _check(q, k, v, q_pos, kv_pos):
+@functools.lru_cache(maxsize=1024)
+def shape_error(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+                window: Optional[int] = None) -> Optional[str]:
+    """Why the kernels cannot take this shape, or None if they can.
+
+    q (b, sq, hq, d) against k / v (b, skv, hkv, d): any lengths, any
+    grouping hq = G * hkv, any head dim that is a multiple of 8 from 8 to 128
+    (TMA's strides are multiples of 16 bytes; the bf16 kernel pads D to 64 or
+    128 with zeros), a window of None or >= 0.
+    """
+    if min(b, sq, skv) < 1:
+        return f"empty batch or sequence (B {b}, Sq {sq}, Skv {skv})"
+    if hkv < 1 or hq % hkv:
+        return f"{hq} q heads do not group over {hkv} kv heads"
+    if d < 8 or d > MAX_HEAD_DIM or d % 8:
+        return f"head_dim {d} is not a multiple of 8 from 8 to {MAX_HEAD_DIM}"
+    if hq > _GRID_YZ or b > _GRID_YZ:
+        return f"{hq} q heads or batch {b} exceed the grid ({_GRID_YZ})"
+    if window is not None and window < 0:
+        return f"window {window} < 0"
+    return None
+
+
+def _check(q, k, v, q_pos, kv_pos, window):
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -54,12 +83,11 @@ def _check(q, k, v, q_pos, kv_pos):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("q must be (B, Sq, Hq, D) and k, v (B, Skv, Hkv, D)")
     b, sq, hq, d = q.shape
-    if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2]:
+    if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if sq == 0 or k.shape[1] == 0:
-        raise ValueError("empty sequence")
+    err = shape_error(b, sq, k.shape[1], hq, k.shape[2], d, window)
+    if err is not None:
+        raise ValueError(err)
     if q_pos.shape != (sq,) or kv_pos.shape != (k.shape[1],):
         raise ValueError("q_pos must be (Sq,) and kv_pos (Skv,)")
     if q_pos.dtype != torch.int32 or kv_pos.dtype != torch.int32:
@@ -85,17 +113,15 @@ def flash_attention_hopper(q, k, v, *, causal: bool = True,
                                      q_pos=q_pos, kv_pos=kv_pos)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    _check(q, k, v, q_pos, kv_pos)
+    _check(q, k, v, q_pos, kv_pos, window)
     lib = library()
     b, sq, hq, d = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        code = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), b, sq, k.shape[1], hq,
-            k.shape[2], d, int(causal), -1 if window is None else int(window),
-            1.0 / (d ** 0.5), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    code = _build.call(
+        q.device, lib.flash_attention_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(), b, sq, k.shape[1], hq,
+        k.shape[2], d, int(causal), -1 if window is None else int(window),
+        1.0 / (d ** 0.5), _DTYPES[q.dtype])
     _build.check(lib, "flash_attention", code)
     launches += 1
     return out

@@ -86,11 +86,10 @@ def ssm_scan_hopper(u, delta, A, B, C, D, h0):
     bt, t, din = u.shape
     y = torch.empty_like(u)
     hT = torch.empty_like(h0)
-    with torch.cuda.device(u.device):
-        code = lib.ssm_scan_fwd(
-            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            D.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr(), bt, t, din,
-            A.shape[1], _DTYPES[u.dtype], torch.cuda.current_stream(u.device).cuda_stream)
+    code = _build.call(
+        u.device, lib.ssm_scan_fwd, u.data_ptr(), delta.data_ptr(), A.data_ptr(),
+        B.data_ptr(), C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
+        hT.data_ptr(), bt, t, din, A.shape[1], _DTYPES[u.dtype])
     _build.check(lib, "ssm_scan", code)
     launches += 1
     return y, hT

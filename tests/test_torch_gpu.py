@@ -102,6 +102,96 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, dtype):
     np.testing.assert_allclose(out, want.float().cpu().numpy(), **_tol(dtype))
 
 
+FLASH_EDGE_CASES = [
+    # (b, sq, skv, hq, hkv, d, causal, window, shift): q_pos = arange(sq) +
+    # (skv - sq) + shift, kv_pos = arange(skv)
+    (1, 70, 70, 4, 2, 16, True, None, 0),        # D 16
+    (2, 100, 100, 4, 2, 48, True, None, 0),      # D 48
+    (1, 130, 130, 32, 8, 120, True, None, 0),    # D 120 (h2o-danube-3), ragged tiles
+    (1, 200, 200, 32, 8, 128, True, None, 0),    # D 128 (the Jamba period)
+    (2, 65, 129, 8, 2, 64, True, None, 0),       # Sq, Skv one past the 64-row tiles
+    (1, 40, 300, 8, 2, 64, True, 50, 0),         # suffix, window: kv tiles 0-2 masked for every row
+    (1, 40, 300, 8, 2, 120, True, 50, 0),
+    (1, 70, 70, 4, 2, 64, True, 1, 3),           # window 1, shifted: 3 rows see no valid key
+    (1, 70, 70, 4, 2, 128, True, 1, -80),        # no row sees a valid key
+    (2, 96, 160, 8, 4, 64, False, None, 0),      # non-causal random: a wrong P layout shows
+    (1, 77, 77, 12, 1, 128, False, None, 0),
+    (1, 77, 77, 12, 1, 128, False, 20, 0),       # window without causality
+]
+
+
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_edge_cases_on_card(cuda, case, dtype):
+    b, sq, skv, hq, hkv, d, causal, window, shift = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(DTYPES[dtype])
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    q_pos = torch.arange(sq, device=cuda, dtype=torch.int32) + (skv - sq) + shift
+    kv_pos = torch.arange(skv, device=cuda, dtype=torch.int32)
+    args = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
+    before = tflash.launches
+    got = tflash.flash_attention_hopper(q, k, v, **args)
+    assert tflash.launches == before + 1
+    want = tflash.flash_attention_plain(q, k, v, **args)
+    out = got.float().cpu().numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, want.float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fp32_keeps_the_fp32_tolerance(cuda, d):
+    """fp32 runs the plain-FMA kernel (tensor cores would round to TF32): it
+    holds 3e-5 at granite's and the Jamba period's prefill shapes."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((1, 512, 32, d), generator=g, device=cuda)
+    k, v = (torch.randn((1, 512, 8, d), generator=g, device=cuda) for _ in range(2))
+    pos = torch.arange(512, device=cuda, dtype=torch.int32)
+    got = tflash.flash_attention_hopper(q, k, v, q_pos=pos, kv_pos=pos)
+    want = tflash.flash_attention_plain(q, k, v, q_pos=pos, kv_pos=pos)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=3e-5, rtol=3e-5)
+
+
+DECODE_EDGE_CASES = [
+    # (b, s, hq, hkv, d, mask): "rand" 3/4 valid, "chunk" rand with the second
+    # chunk of 32 rows wholly masked, "none" every key masked
+    (1, 512, 48, 4, 128, "rand"),     # starcoder2: G * D = 12 x 128
+    (1, 512, 32, 8, 120, "rand"),     # h2o-danube-3: D 120
+    (1, 500, 32, 8, 64, "rand"),      # S not a multiple of the 32-row chunk
+    (1, 512, 32, 8, 64, "chunk"),
+    (1, 512, 32, 8, 128, "none"),
+    (3, 300, 32, 8, 64, "rand"),      # B 3
+    (3, 777, 12, 1, 128, "chunk"),
+    (2, 64, 96, 1, 128, "rand"),      # G * D = 12288
+    (16, 300, 32, 8, 64, "chunk"),    # 3 splits of 100 rows: 4 tiles a block
+    (40, 1000, 8, 8, 128, "rand"),    # a full batch: 1 split, 32 tiles a block
+]
+
+
+@pytest.mark.parametrize("case", DECODE_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_edge_cases_on_card(cuda, case, dtype):
+    b, s, hq, hkv, d, kind = case
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(DTYPES[dtype])
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=cuda).to(DTYPES[dtype])
+            for _ in range(2))
+    mask = torch.rand((b, s), generator=g, device=cuda) > 0.25
+    if kind == "chunk":
+        chunk = -(-s // tdecode.decode_splits(b, s, hkv, tdecode._sms(cuda.index or 0)))
+        mask[:, chunk:2 * chunk] = False
+    if kind == "none":
+        mask[:] = False
+    before = tdecode.launches
+    got = tdecode.decode_attention_hopper(q, k, v, mask)
+    assert tdecode.launches == before + 1
+    want = tdecode.decode_attention_plain(q, k, v, mask)
+    out = got.float().cpu().numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, want.float().cpu().numpy(), **_tol(dtype))
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.zeros((1, 8, 4, 64), device=cuda)
     pos = torch.arange(8, device=cuda, dtype=torch.int32)

@@ -138,3 +138,92 @@ def test_unknown_impl_raises():
     q = torch.zeros((1, 4, 2, 16))
     with pytest.raises(ValueError, match="unknown attention impl"):
         ops.flash_attention(q, q, q, impl="triton")
+
+
+# --------------------------------------------------------------------------- #
+# the kernels' shape rules against every served config, and parity at the
+# head shapes the first kernels refused
+# --------------------------------------------------------------------------- #
+
+SERVED_FAMILIES = ("dense", "moe", "hybrid")
+
+
+def _served_configs():
+    from repro_torch.config import ARCH_IDS, get_config
+    return [c for c in (get_config(a) for a in ARCH_IDS) if c.family in SERVED_FAMILIES]
+
+
+def test_every_served_config_fits_the_attention_kernels():
+    """Every full dense, MoE and hybrid config's attention shape (Hq, Hkv,
+    head_dim, sliding_window) is one both hand kernels take, at a 512-token
+    prefill, a one-token decode over the cache and a batch of 4."""
+    cfgs = _served_configs()
+    assert {c.name for c in cfgs} >= {"h2o-danube-3-4b", "starcoder2-15b",
+                                       "granite-3-2b", "jamba-v0.1-52b"}
+    for c in cfgs:
+        hq, hkv, d = c.num_heads, c.num_kv_heads, c.head_dim
+        for b in (1, 4):
+            assert tflash.shape_error(b, 512, 512, hq, hkv, d, c.sliding_window) is None, c.name
+            assert tflash.shape_error(b, 1, 512, hq, hkv, d, c.sliding_window) is None, c.name
+            assert tdecode.shape_error(b, 512, hq, hkv, d) is None, c.name
+            assert tdecode.shape_error(b, 4096, hq, hkv, d) is None, c.name
+
+
+def test_shape_rules_refuse_what_the_kernels_cannot_take():
+    assert "multiple of 8" in tflash.shape_error(1, 8, 8, 4, 2, 12)
+    assert "multiple of 8" in tflash.shape_error(1, 8, 8, 4, 2, 136)
+    assert "group" in tflash.shape_error(1, 8, 8, 6, 4, 64)
+    assert "empty" in tflash.shape_error(1, 0, 8, 4, 2, 64)
+    assert "window" in tflash.shape_error(1, 8, 8, 4, 2, 64, window=-1)
+    assert "multiple of 8" in tdecode.shape_error(1, 64, 8, 2, 100)
+    assert "group" in tdecode.shape_error(1, 64, 12, 5, 128)
+    assert "shared memory" in tdecode.shape_error(1, 64, 256, 1, 128)
+    assert tdecode.shape_error(1, 64, 96, 1, 128) is None   # G * D = 12288: no fixed cap
+    assert tflash.shape_error(1, 3, 5, 8, 8, 8) is None
+
+
+@pytest.mark.parametrize("b,s,hkv,want", [
+    (1, 512, 8, 16),      # granite / jamba decode: 16 splits x 8 kv heads = 128 blocks
+    (1, 512, 4, 16),      # starcoder2: capped by 32-row chunks
+    (1, 24, 8, 1),        # short cache: one chunk
+    (1, 1000, 8, 32),     # 32 chunks of 32 rows, the last ragged
+    (64, 4096, 8, 1),     # a full batch already fills the card
+    (3, 500, 8, 11),
+])
+def test_decode_splits(b, s, hkv, want):
+    splits = tdecode.decode_splits(b, s, hkv)
+    assert splits == want
+    chunk = -(-s // splits)
+    assert chunk >= min(s, tdecode.MIN_CHUNK)
+    assert (splits - 1) * chunk < s           # no split is empty
+
+
+REPAIRED_ATTN_CASES = [
+    # (b, sq, skv, hq, hkv, d, causal, window): h2o-danube-3's head shape
+    (1, 24, 24, 32, 8, 120, True, None),
+    (1, 24, 40, 32, 8, 120, True, 16),       # ragged, suffix-aligned, windowed
+    (1, 16, 16, 32, 8, 120, False, None),
+]
+
+
+@pytest.mark.parametrize("case", REPAIRED_ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_jax_at_danube_head_dim(case, dtype):
+    assert tflash.shape_error(*case[:6], window=case[7]) is None
+    test_flash_attention_matches_jax(case, dtype)
+
+
+REPAIRED_DECODE_CASES = [
+    # (b, s, hq, hkv, d): starcoder2's grouping (G * D = 12 x 128) and D 120
+    (1, 40, 12, 1, 128),
+    (2, 40, 12, 1, 128),
+    (1, 24, 32, 8, 120),
+]
+
+
+@pytest.mark.parametrize("case", REPAIRED_DECODE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_matches_jax_at_repaired_shapes(case, dtype):
+    b, s, hq, hkv, d = case
+    assert tdecode.shape_error(b, s, hq, hkv, d) is None
+    test_decode_attention_matches_jax(case, dtype)
