@@ -15,7 +15,8 @@ Phases, each fatal on failure:
                times of the kernel, the plain version and, as a yardstick only,
                F.scaled_dot_product_attention at granite's and Jamba's shapes;
                the selective scan on ragged fixtures and at the one-period
-               Jamba prefill shape, fp32 and bf16;
+               Jamba prefill shape, fp32 and bf16, timed by CUDA-graph replay
+               (device time) and launch by launch;
   4. model   — full-width granite-3-2b in fp32, prefill + 4 decode steps through
                the hand kernels and through the plain oracles on the same weights;
   5. engine  — the bf16 full-width InferenceEngine: cold start, 3 requests,
@@ -34,12 +35,14 @@ Phases, each fatal on failure:
                serve);
   6. cluster — the batch simulator's cluster-step kernel against its plain
                torch version on the card: the reference tests' random fixtures
-               (seeds 0-2) and one wide random table;
+               (seeds 0-2, the warp layout) and one wide random table (the
+               block layout), each case naming its layout;
   7. batch   — the batch sweep driver on the card: batch_dense64 and
                batch_grid64 through run_sweep(..., driver="batch"), one kernel
-               launch each; then each grid's built tables through the kernel
-               and its plain version (state and aggregates compared, both
-               timed), the sweep's summaries against the plain version's
+               launch each (by layout); then each grid's built tables through
+               the kernel and its plain version (state and aggregates
+               compared; the kernel timed by graph replay and launch by
+               launch, the plain version once), the sweep's summaries against the plain version's
                ledgers, the batch-vs-scalar spot check on four dense cells,
                and one traced batch call for the device's busy share.
 Then one JSON line of kernel numbers and, last, the device JSON line.
@@ -325,14 +328,19 @@ def ssm_kernel_phase(torch, dev):
             stop.record()
             torch.cuda.synchronize()
             t_exp = bt * t * din * n
+            geo = ks.scan_geometry(n, args[0].element_size())
             row = dict(max_abs_err=err,
-                       ms=_time_ms(torch, lambda: ks.ssm_scan_hopper(*args)),
+                       ms=_graph_ms(torch, lambda: ks.ssm_scan_hopper(*args)),
+                       launch_ms=_time_ms(torch, lambda: ks.ssm_scan_hopper(*args)),
                        plain_ms=start.elapsed_time(stop), library_ms=None,
                        bound=_bound(6.0 * t_exp, _nbytes(*args, *got), "float32",
                                     exps=t_exp))
-            print(f"time ssm_scan {dtype} (jamba shape): kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms (one call), library none, bound "
-                  f"{row['bound'][0]:.5f} ms ({row['bound'][1]})")
+            print(f"time ssm_scan {dtype} (jamba shape; {geo['lanes']} lanes x "
+                  f"{geo['states']} states a channel, {geo['threads']} threads, "
+                  f"{geo['smem_bytes']} B shared a block): kernel {row['ms']:.4f} ms device "
+                  f"(graph replay), {row['launch_ms']:.4f} ms launch by launch (host "
+                  f"included); plain {row['plain_ms']:.4f} ms (one call), library none, "
+                  f"bound {row['bound'][0]:.5f} ms ({row['bound'][1]})")
             if dtype == "bfloat16":
                 timed = row
     print(f"kernel ssm_scan: {2 * len(cases)} cases ok (Bt 2, T 1-300, Din 64/200, N 4-16, "
@@ -713,9 +721,10 @@ def _cluster_compare(torch, name, args):
     torch.cuda.synchronize()
     err, ok = _cluster_agree(got, want)
     c, f, w = args[0].shape
-    print(f"cluster {name} C={c} F={f} W={w} K={args[7].shape[2]} T={args[3].shape[1]}: "
-          f"max_abs_err={err:.3e} rtol={CLUSTER_TOL['rtol']} atol={CLUSTER_TOL['atol']} "
-          f"{'ok' if ok else 'FAIL'}")
+    k = args[7].shape[2]
+    print(f"cluster {name} C={c} F={f} W={w} K={k} T={args[3].shape[1]} "
+          f"layout={kc.layout(f, w, k)}: max_abs_err={err:.3e} rtol={CLUSTER_TOL['rtol']} "
+          f"atol={CLUSTER_TOL['atol']} {'ok' if ok else 'FAIL'}")
     if not ok:
         for nm, g, wt in zip(("nw", "fs", "free", "agg"), got, want):
             bad = ~torch.isclose(g, wt, **CLUSTER_TOL)
@@ -753,14 +762,16 @@ def batch_phase(torch, dev):
     launches, timed = 0, None
     for grid in BATCH_GRIDS:
         kc.launches = 0                             # the main path starts here
+        kc.layout_launches.update(warp=0, block=0)
         t0 = time.perf_counter()
         rows = list(runner.run_sweep(grid, driver="batch"))
         wall = time.perf_counter() - t0
         n = kc.launches                             # read just after the main path
+        by_layout = dict(kc.layout_launches)
         launches += n
         cells = registry.get_sweep(grid).scenarios()
         print(f"batch {grid}: {len(rows)} cells in {wall:.3f} s (run_sweep, driver=batch), "
-              f"cluster_step launches {n}")
+              f"cluster_step launches {n} by layout {by_layout}")
         if n != 1 or len(rows) != len(cells):
             _fail(f"{grid}: {n} kernel launches for {len(rows)} cells (expected 1 for "
                   f"{len(cells)})")
@@ -784,13 +795,16 @@ def batch_phase(torch, dev):
                 worst = max(worst, abs(v - r))
         print(f"batch {grid}: sweep summaries vs plain-version ledgers: max |diff| "
               f"{worst:.3e} over {len(rows)} cells ok")
-        kernel_ms = _time_ms(torch, lambda: kc.cluster_sim_hopper(*args), iters=20)
+        kernel_ms = _graph_ms(torch, lambda: kc.cluster_sim_hopper(*args), reps=2, iters=5)
+        launch_ms = _time_ms(torch, lambda: kc.cluster_sim_hopper(*args), iters=10)
         bound = _cluster_bound(args, got)
-        print(f"time cluster_step fp32 ({grid}): kernel {kernel_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (one call), library none, bound {bound[0]:.5f} ms "
-              f"({bound[1]})")
+        kind = kc.layout(*args[0].shape[1:], args[7].shape[2])
+        print(f"time cluster_step fp32 ({grid}, layout {kind}): "
+              f"kernel {kernel_ms:.4f} ms device (graph replay), {launch_ms:.4f} ms launch by "
+              f"launch (host included); plain {plain_ms:.4f} ms (one call), library none, "
+              f"bound {bound[0]:.5f} ms ({bound[1]})")
         if grid == "batch_dense64":
-            timed = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+            timed = dict(max_abs_err=err, ms=kernel_ms, launch_ms=launch_ms, plain_ms=plain_ms,
                          library_ms=None, bound=bound)
         t0 = time.perf_counter()
         batchsim.simulate_batch(cells, trace_fn=runner.build_trace)

@@ -1,10 +1,14 @@
-"""The batch simulator's cluster step: the hand kernel
-(``csrc/cluster_step.cu``), its wrapper and its plain torch version.
+"""The batch simulator's cluster step: the hand kernels
+(``csrc/cluster_step.cu``), their wrapper and the plain torch version.
 
 Replaces ``repro.kernels.cluster_step.cluster_sim_pallas``: every sweep cell
-through all T fixed-dt cohort steps in one launch.  The wrapper launches the
+through all T fixed-dt cohort steps in one launch.  The wrapper launches a
 kernel for CUDA tensors (or raises) and runs :func:`cluster_sim_plain` for
-CPU tensors; nothing falls back.
+CPU tensors; nothing falls back.  Two layouts, both hand kernels, picked by
+shape (:func:`layout`): ``"warp"``, one warp a cell with the state in
+registers, for every table up to F 64, W 8, K 8 (every registered batch
+grid); ``"block"``, one block a cell with a thread a function, for wider
+tables.
 """
 from __future__ import annotations
 
@@ -16,18 +20,46 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
 
 launches = 0   # kernel launches; chip_smoke.py resets and reads it
+layout_launches = {"warp": 0, "block": 0}   # the same launches by layout
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"cluster_step_fwd": (_P,) * 15 + (_I,) * 5 + (_P,)}
-MAX_THREADS = 512                 # one thread per function (and per worker)
+_SIGNATURES = {"cluster_step_fwd": (_P,) * 15 + (_I,) * 6 + (_P,)}
+_LAYOUT_CODE = {"warp": 0, "block": 1}
+WARP_MAX = {"F": 64, "W": 8, "K": 8}   # the warp kernel's compile-time bounds
+CHUNK = 128                       # steps a stage of the warp kernel's ring holds
+MAX_THREADS = 512                 # block kernel: one thread per function (and per worker)
 MAX_SMEM_BYTES = 232448           # dynamic shared memory one H100 block can use
 _NAMES = ("nw", "fs", "free", "arrivals", "conc", "fparam", "promote",
           "dwell", "ntier", "frac", "scal")
 
 
-def smem_bytes(f: int, w: int) -> int:
-    """Shared memory the kernel's block takes (``smem_bytes`` in the source)."""
-    return 4 * (2 * f * (w | 1) + 2 * w + 2 * f + R.AG_N * f)
+def smem_bytes(kind: str, f: int, w: int) -> int:
+    """Shared memory one block of layout ``kind`` takes (``warp_smem_bytes``
+    and ``block_smem_bytes`` in the source)."""
+    if kind == "warp":
+        row = 4 if w <= 4 else 8
+        return 16 + 4 * (4 * CHUNK * f + f * row + f + R.AG_N * f)
+    if kind == "block":
+        return 4 * (2 * f * (w | 1) + 2 * w + 2 * f + R.AG_N * f)
+    raise ValueError(f"unknown cluster-step layout {kind!r}")
+
+
+def layout(f: int, w: int, k: int) -> str:
+    """The kernel layout for F functions, W workers and K schedule edges:
+    ``"warp"`` within the warp kernel's bounds, else ``"block"``.  Raises
+    ValueError for a table that neither takes."""
+    if min(f, w, k) < 1:
+        raise ValueError(f"empty grid: F={f} W={w} K={k}")
+    if f <= WARP_MAX["F"] and w <= WARP_MAX["W"] and k <= WARP_MAX["K"] \
+            and smem_bytes("warp", f, w) <= MAX_SMEM_BYTES:
+        return "warp"
+    if max(f, w) > MAX_THREADS:
+        raise ValueError(f"F={f} functions and W={w} workers: the block kernel "
+                         f"holds at most {MAX_THREADS} of each")
+    if smem_bytes("block", f, w) > MAX_SMEM_BYTES:
+        raise ValueError(f"F={f} x W={w} needs {smem_bytes('block', f, w)} bytes of "
+                         f"shared memory, over the block's {MAX_SMEM_BYTES}")
+    return "block"
 
 
 def cluster_sim_plain(nw, fs, free, arrivals, conc, fparam, promote, dwell,
@@ -74,14 +106,9 @@ def _check(args):
             raise ValueError(f"{name} is on {x.device}, nw on {nw.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if min(c, f, w, k) < 1:
-        raise ValueError(f"empty grid: C={c} F={f} W={w} K={k}")
-    if max(f, w) > MAX_THREADS:
-        raise ValueError(f"F={f} functions and W={w} workers: the kernel's "
-                         f"block holds at most {MAX_THREADS} of each")
-    if smem_bytes(f, w) > MAX_SMEM_BYTES:
-        raise ValueError(f"F={f} x W={w} needs {smem_bytes(f, w)} bytes of "
-                         f"shared memory, over the block's {MAX_SMEM_BYTES}")
+    if c < 1:
+        raise ValueError(f"empty grid: C={c}")
+    return layout(f, w, k)
 
 
 def cluster_sim_hopper(nw, fs, free, arrivals, conc, fparam, promote, dwell,
@@ -92,8 +119,8 @@ def cluster_sim_hopper(nw, fs, free, arrivals, conc, fparam, promote, dwell,
     nw (C, F, W); fs (C, F, FS_N); free (C, W); arrivals and conc (C, T, F);
     fparam/promote (C, F, 5); dwell/ntier (C, F, K); frac (C, 5);
     scal (C, SC_N); all float32.  Returns ``(nw, fs, free, agg)`` with agg
-    (C, AG_N).  CUDA tensors go to the hand kernel (one launch), CPU tensors
-    to the plain version.
+    (C, AG_N).  CUDA tensors go to a hand kernel (one launch, the layout
+    :func:`layout` picks), CPU tensors to the plain version.
     """
     global launches
     args = (nw, fs, free, arrivals, conc, fparam, promote, dwell, ntier, frac,
@@ -102,7 +129,7 @@ def cluster_sim_hopper(nw, fs, free, arrivals, conc, fparam, promote, dwell,
         return cluster_sim_plain(*args)
     if nw.device.type != "cuda":
         raise ValueError(f"the cluster step runs on cuda or cpu, not {nw.device}")
-    _check(args)
+    kind = _check(args)
     lib = library()
     c, f, w = nw.shape
     t, k = arrivals.shape[1], dwell.shape[2]
@@ -110,7 +137,9 @@ def cluster_sim_hopper(nw, fs, free, arrivals, conc, fparam, promote, dwell,
     agg = torch.empty((c, R.AG_N), dtype=torch.float32, device=nw.device)
     code = _build.call(
         nw.device, lib.cluster_step_fwd, *(x.data_ptr() for x in args), nw_out.data_ptr(),
-        fs_out.data_ptr(), free_out.data_ptr(), agg.data_ptr(), c, f, w, k, t)
+        fs_out.data_ptr(), free_out.data_ptr(), agg.data_ptr(), c, f, w, k, t,
+        _LAYOUT_CODE[kind])
     _build.check(lib, "cluster_step", code)
     launches += 1
+    layout_launches[kind] += 1
     return nw_out, fs_out, free_out, agg

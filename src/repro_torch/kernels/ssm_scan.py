@@ -18,7 +18,28 @@ launches = 0   # kernel launches; chip_smoke.py resets and reads it
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"ssm_scan_fwd": (_P,) * 9 + (_I,) * 5 + (_P,)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_STATE = 32     # N: one group of at most a warp's lanes per channel
+MAX_STATE = 32     # N: at most 8 lanes of 4 states a channel
+STATES = 4         # states a lane
+CHANNELS = 64      # channels a block
+CHUNK = 32         # time steps a stage of the ring holds
+
+
+def scan_geometry(n: int, itemsize: int) -> dict:
+    """The kernel's launch geometry for state size ``n`` and u / B / C of
+    ``itemsize`` bytes (``launch_l`` and ``smem_bytes`` in the source):
+    lanes a channel (the power of two >= n / 4), states a lane, channels and
+    threads a block, steps a chunk and the block's shared memory."""
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"state size N={n} not in [1, {MAX_STATE}]")
+    lanes = 1
+    while lanes * STATES < n:
+        lanes *= 2
+    raw_bc = (CHUNK * n * itemsize + 15) // 16 * 16
+    stage = CHUNK * CHANNELS * (itemsize + 4) + 2 * raw_bc
+    y_stride = CHANNELS + max(32 // lanes, 4)
+    smem = 2 * stage + 2 * CHUNK * 2 * STATES * lanes * 4 + 2 * CHUNK * y_stride * 4
+    return dict(lanes=lanes, states=STATES, channels=CHANNELS,
+                threads=CHANNELS * lanes, chunk=CHUNK, smem_bytes=smem)
 
 
 def ssm_scan_plain(u, delta, A, B, C, D, h0):
@@ -59,8 +80,7 @@ def _check(u, delta, A, B, C, D, h0):
         raise ValueError(f"shapes do not match: u {tuple(u.shape)}, delta {tuple(delta.shape)}, "
                          f"A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, "
                          f"D {tuple(D.shape)}, h0 {tuple(h0.shape)}")
-    if not 1 <= n <= MAX_STATE:
-        raise ValueError(f"state size N={n} not in [1, {MAX_STATE}]")
+    scan_geometry(n, u.element_size())
     if min(bt, t, din) == 0:
         raise ValueError("empty scan")
     if bt > 65535:

@@ -234,6 +234,47 @@ def test_cluster_kernel_matches_plain_on_card(cuda, case):
                                    err_msg=name)
 
 
+# around the warp kernel's 128-step chunk (T 1, 127-129, 300 with the horizon
+# inside the second chunk), its lane and layout bounds (F 1, 5, 32, 33, 64,
+# 65; W 1, 8 and 9; K 8), F not a multiple of 4 (4-byte cp.async instead of
+# the bulk copy)
+CLUSTER_EDGE_CASES = [
+    dict(seed=10, T=1, horizon=10.0), dict(seed=11, T=127), dict(seed=12, T=128),
+    dict(seed=13, T=129), dict(seed=14, F=5, W=3, T=300, horizon=100.0),
+    dict(seed=15, C=2, F=1, W=1, T=40),
+    dict(seed=16, C=2, F=32, W=8, K=8, T=140, worker_mb=65536.0),
+    dict(seed=17, C=2, F=33, W=4, T=140, worker_mb=65536.0),
+    dict(seed=18, C=2, F=64, W=8, K=8, T=130, worker_mb=131072.0),
+    dict(seed=19, C=2, F=65, W=4, T=60, worker_mb=131072.0),
+    dict(seed=20, C=2, F=20, W=9, T=60, worker_mb=32768.0),
+]
+
+
+@pytest.mark.parametrize("case", CLUSTER_EDGE_CASES, ids=lambda c: f"seed{c['seed']}")
+def test_cluster_kernel_edge_cases_on_card(cuda, case):
+    from repro_torch.kernels import ref as R
+
+    kw = dict(case)
+    seed, horizon = kw.pop("seed"), kw.pop("horizon", None)
+    cs = _chip_smoke()
+    tables = cs.kernel_order(cs.random_tables(np.random.default_rng(seed), **kw))
+    if horizon is not None:
+        tables[-1][:, R.SC_HORIZON] = horizon
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in tables]
+    c, f, w = args[0].shape
+    kind = tcluster.layout(f, w, args[7].shape[2])
+    assert kind == ("warp" if f <= 64 and w <= 8 else "block")
+    before = dict(tcluster.layout_launches)
+    got = tcluster.cluster_sim_hopper(*args)
+    assert tcluster.layout_launches[kind] == before[kind] + 1
+    want = tcluster.cluster_sim_plain(*args)
+    for name, g, wt in zip(("nw", "fs", "free", "agg"), got, want):
+        out = g.cpu().numpy()
+        assert np.isfinite(out).all(), name
+        np.testing.assert_allclose(out, wt.cpu().numpy(), rtol=1e-4, atol=1e-2,
+                                   err_msg=name)
+
+
 def test_cluster_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     cs = _chip_smoke()
     tables = cs.kernel_order(cs.random_tables(np.random.default_rng(0)))
@@ -264,6 +305,12 @@ def _ssm_inputs(bt, t, din, n, dtype, device, seed=0):
 
 SSM_CASES = [(2, t, din, n) for t in (1, 37, 256, 300) for din in (64, 200) for n in (4, 8, 16)]
 SSM_CASES += [(1, 512, 8192, 16), (3, 65, 96, 32), (1, 40, 24, 5)]   # jamba, N = 32, N odd
+
+
+# around the 32-step chunk, the lanes a channel (N 1-4: 1, 5-8: 2, 9-16: 4,
+# 17-32: 8) and ragged channel blocks (Din 24, 200 against 64 a block)
+SSM_CASES += [(3, t, din, n) for t in (1, 31, 32, 33, 257) for n in (1, 5, 16, 17, 32)
+              for din in (24, 200)]
 
 
 @pytest.mark.parametrize("case", SSM_CASES, ids=lambda c: "x".join(map(str, c)))

@@ -101,3 +101,30 @@ def test_chip_smoke_fails_alone(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/attention_times.py",
+                                    "tools/kernel_times.py"])
+def test_card_scripts_import_no_jax_and_no_repro(script):
+    """The scripts run on the card's machine, where JAX is not installed."""
+    import ast
+
+    tree = ast.parse((ROOT / script).read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)
+
+
+def test_kernel_times_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "kernel_times.py"),
+                           str(ROOT / "src"), "here"], env=ENV, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1 and "needs a CUDA card" in proc.stderr
+    assert proc.stdout == ""
