@@ -44,7 +44,28 @@ Phases, each fatal on failure:
                compared; the kernel timed by graph replay and launch by
                launch, the plain version once), the sweep's summaries against the plain version's
                ledgers, the batch-vs-scalar spot check on four dense cells,
-               and one traced batch call for the device's busy share.
+               and one traced batch call for the device's busy share;
+  8. xlstm   — full-width xlstm-125m (12 layers LSLS..., no hand kernel on its
+               path): in fp32, a 512-token prefill and 4 decode steps on the
+               card against the same weights on the CPU, with ms per prefill
+               and device launches per token; in bf16, the InferenceEngine
+               (cold start, 3 requests, scale to zero, snapshot restore, 1
+               request with the first's tokens; restore < cold start) and one
+               traced request;
+  9. facade  — a ServerlessRouter with full-width xlstm-125m and granite-3-2b:
+               each COLD then warm (warm faster), granite's exact kernel
+               launches; a ttl-0 router on the same store restores each
+               (restore < cold start); format_summary;
+ 10. launcher — python -m repro_torch.launch.serve (SMOKE xlstm, ttl 0): three
+               COLD lines and a summary;
+ 11. drivers — engine_smoke, calib/engine_paused and calib/engine_snapshot
+               under the engine driver on the card (every invocation
+               served), the cost model fitted from the two probes' events
+               (analyze.calibrate, written to a temporary file) and the
+               fidelity rows before and after.
+The granite engine phase also restores from the snapshot file alone (a store
+with no pinned host copy, as a new process has) beside the pinned restore,
+and holds the pinned restore under the cold start (C2).
 Then one JSON line of kernel numbers and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -81,6 +102,10 @@ HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8
 # (tests/test_batchsim.py, Pallas twin vs oracle)
 CLUSTER_TOL = dict(rtol=1e-4, atol=1e-2)
 BATCH_GRIDS = ("batch_dense64", "batch_grid64")
+# the xLSTM family at full width: fp32 card vs CPU on one set of weights, 12
+# recurrent layers over 512 steps (the model phase's tolerance)
+XLSTM = "xlstm-125m"
+ENGINE_DRIVER_CELLS = ("engine_smoke", "calib/engine_paused", "calib/engine_snapshot")
 
 
 def _fail(msg: str) -> None:
@@ -461,8 +486,45 @@ def engine_phase(torch):
               f"({layers}/prefill), decode_attention {total[1]} ({layers}/decode step)")
         if total != want:
             _fail(f"engine run launches {total} != {want}")
+        restore_designs(eng, bd, bd2, prompts[0], outs[0])
         profile_serve(torch, lambda: _wall(eng.serve(prompts[1], decode_steps=DECODE_STEPS)[1]))
     return {"flash_attention": total[0], "decode_attention": total[1]}
+
+
+def _gate_restore(label, cold, restore):
+    """C2: a snapshot restore must cost less than a cold start."""
+    print(f"C2 {label}: restore total {restore.total * 1e3:.2f} ms vs cold start total "
+          f"{cold.total * 1e3:.2f} ms ({'ok' if restore.total < cold.total else 'FAIL'})")
+    if not restore.total < cold.total:
+        _fail(f"{label}: snapshot restore {restore} is not cheaper than cold start {cold}")
+
+
+def restore_designs(eng, cold, pinned, prompt, want):
+    """The two restore designs on one snapshot: (b) the store's pinned host
+    copy (the engine's restore above) and (a) the file alone, memory-mapped
+    and copied to the card (a store with no host copy, as a new process has;
+    the file is in the page cache, as on a node that wrote it).  The
+    warmed-key cache is shared, so only deps_load differs."""
+    import numpy as np
+    from repro_torch.core.lifecycle import Phase
+    from repro_torch.serving.engine import SnapshotStore
+
+    store = eng.store
+    fresh = SnapshotStore(store.root)
+    fresh.executables = store.executables
+    size = Path(store._path(eng.key)).stat().st_size
+    eng.shutdown()
+    eng.store = fresh
+    file_bd = eng.cold_start(from_snapshot=True)
+    eng.store = store
+    out, _ = eng.serve(prompt, decode_steps=DECODE_STEPS)
+    if not np.array_equal(out, want):
+        _fail(f"tokens after the file restore {out} != first request's {want}")
+    for label, bd in (("(a) file, mmap + copy", file_bd), ("(b) pinned host copy", pinned)):
+        dl = bd.seconds.get(Phase.DEPS_LOAD, 0.0)
+        print(f"restore design {label}: {bd}; deps_load {dl * 1e3:.2f} ms for "
+              f"{size / 1e9:.3f} GB = {size / 1e9 / dl:.2f} GB/s")
+    _gate_restore(f"{eng.arch} full width (pinned restore)", cold, pinned)
 
 
 def _wall(stats) -> float:
@@ -471,7 +533,8 @@ def _wall(stats) -> float:
 
 def profile_serve(torch, serve):
     """Device busy share and kernel time by name over one warm request: the
-    wall time from an unprofiled request, the kernel time from a traced one.
+    wall time from an unprofiled request, the kernel time from a traced one
+    (device activity only: an xLSTM request launches ~10^5 eager ops).
     ``serve()`` runs one request and returns its wall seconds."""
     from collections import defaultdict
 
@@ -479,7 +542,7 @@ def profile_serve(torch, serve):
     from torch.profiler import ProfilerActivity, profile
 
     wall_us = serve() * 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve()
     by_name = defaultdict(lambda: [0.0, 0])
     for e in prof.events():
@@ -869,6 +932,262 @@ def _spot_check(torch):
     if not all(r.ok for r in rows):
         _fail("spot_check: the batch driver is outside the tolerance contract")
 
+# --------------------------------------------------------------------------- #
+# phase 8: the xLSTM family at full width
+# --------------------------------------------------------------------------- #
+
+
+def _device_launches(torch, fn) -> int:
+    """Device activities (kernels, copies, fills) recorded by torch.profiler
+    over one ``fn()``: the host's launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def xlstm_model_phase(torch, dev):
+    """Full-width xlstm-125m in fp32: a MAX_SEQ-token prefill and 4 decode
+    steps on the card against the same weights on the CPU."""
+    from repro_torch.config import get_config
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(get_config(XLSTM), dtype="float32", param_dtype="float32")
+    card = registry.build(cfg, max_seq=MAX_SEQ, device=dev)
+    host = registry.build(cfg, max_seq=MAX_SEQ, device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = card.init(gen)
+    ref = host.empty()
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, assign=True)
+    n = sum(t.numel() for t in model.state_dict().values())
+    print(f"xlstm {XLSTM} fp32: {n / 1e6:.2f} M parameters (layers "
+          f"{cfg.layer_pattern}), {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    tokens = torch.randint(0, cfg.vocab_size, (1, MAX_SEQ), generator=gen, device=dev)
+    with torch.inference_mode():
+        lk, ck, pos = card.prefill(model, {"tokens": tokens})
+        t0 = time.perf_counter()
+        card.prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        lp, cp, _ = host.prefill(ref, {"tokens": tokens.cpu()})
+        cpu_s = time.perf_counter() - t0
+        steps = [("prefill", lk, lp)]
+        for i in range(4):
+            tok = lk.argmax(-1)
+            lk, ck = card.decode_step(model, ck, tok, pos + i)
+            lp, cp = host.decode_step(ref, cp, tok.cpu(), pos + i)
+            steps.append((f"decode{i}", lk, lp))
+        for name, a, b in steps:
+            a = a.cpu()
+            if a.shape != (1, cfg.vocab_size) or not torch.isfinite(a).all():
+                _fail(f"xlstm {name} logits: shape {tuple(a.shape)} or not finite")
+            err, ok = _close(a, b, MODEL_TOL)
+            print(f"xlstm fp32 {name}: card vs CPU max |logit err| {err:.3e} (logit scale "
+                  f"{b.abs().max().item():.3f}) tol={MODEL_TOL} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"full-width {XLSTM} {name}: the card disagrees with the CPU")
+        short = tokens[:, :32]
+        per_prefill = _device_launches(torch, lambda: card.prefill(model, {"tokens": short}))
+        per_step = _device_launches(torch, lambda: card.decode_step(model, ck, tok, pos))
+    print(f"xlstm fp32 prefill of {MAX_SEQ} tokens: {prefill_ms:.1f} ms on the card "
+          f"({prefill_ms / MAX_SEQ:.3f} ms/token), {cpu_s:.2f} s on the host's CPU; "
+          f"device launches {per_prefill / short.shape[1]:.1f} per prefill token "
+          f"(32-token prefill), {per_step} per decode step")
+    del model, ref, ck, cp
+    _free(torch)
+
+
+def xlstm_engine_phase(torch):
+    """The bf16 full-width engine on xlstm-125m: cold start, 3 requests,
+    scale to zero, snapshot restore, 1 request; one traced request."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.serving.engine import InferenceEngine, SnapshotStore
+
+    vocab = get_config(XLSTM).vocab_size
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, vocab, (1, MAX_SEQ)).astype(np.int32) for _ in range(REQUESTS)]
+    with tempfile.TemporaryDirectory() as snapdir:
+        eng = InferenceEngine(XLSTM, smoke=False, max_seq=MAX_SEQ, batch=1,
+                              store=SnapshotStore(snapdir), device="cuda")
+        bd = eng.cold_start()
+        print(f"xlstm engine cold_start: {bd}, weights {eng.package_bytes() / 1e9:.3f} GB")
+        outs = []
+        for i, p in enumerate(prompts):
+            out, st = eng.serve(p, decode_steps=DECODE_STEPS)
+            print(f"xlstm engine serve {i}: prefill {st.prefill_s * 1e3:.2f} ms, decode "
+                  f"{st.decode_s * 1e3:.2f} ms for {st.tokens} tokens "
+                  f"({st.decode_s / st.tokens * 1e3:.3f} ms/token), tokens {out[0].tolist()}")
+            if out.shape != (1, DECODE_STEPS) or not ((out >= 0) & (out < vocab)).all():
+                _fail(f"xlstm serve {i} tokens out of range: {out}")
+            outs.append(out)
+        eng.shutdown()
+        bd2 = eng.cold_start(from_snapshot=True)
+        print(f"xlstm engine restore: {bd2}")
+        out, st = eng.serve(prompts[0], decode_steps=DECODE_STEPS)
+        print(f"xlstm engine serve after restore: prefill {st.prefill_s * 1e3:.2f} ms, "
+              f"decode {st.decode_s * 1e3:.2f} ms, tokens {out[0].tolist()}")
+        if not np.array_equal(out, outs[0]):
+            _fail(f"xlstm tokens after restore {out} != first request's {outs[0]}")
+        _gate_restore(f"{XLSTM} full width", bd, bd2)
+        profile_serve(torch, lambda: _wall(eng.serve(prompts[1], decode_steps=DECODE_STEPS)[1]))
+        eng.shutdown()
+    _free(torch)
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: the router / fleet facade at full width
+# --------------------------------------------------------------------------- #
+
+
+def facade_phase(torch):
+    """Two functions behind one ServerlessRouter (the reference's API, the
+    EngineProfile set after register): each COLD then warm at ttl 300; then a
+    ttl-0 router on the same store, whose requests restore."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.core.metrics import format_summary
+    from repro_torch.fleet.pool import EngineProfile
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.serving.engine import SnapshotStore
+    from repro_torch.serving.router import FunctionDef, ServerlessRouter
+
+    functions = {"xlstm": XLSTM, "granite": ARCH}
+    layers = {name: (get_config(arch).num_layers if arch == ARCH else 0)
+              for name, arch in functions.items()}
+
+    def router_for(ttl, store):
+        router = ServerlessRouter(ttl_s=ttl, store=store)
+        for name, arch in functions.items():
+            router.register(FunctionDef(name, arch, max_seq=MAX_SEQ, decode_steps=DECODE_STEPS))
+            router.backend.profiles[name] = EngineProfile(
+                arch=arch, max_seq=MAX_SEQ, decode_steps=DECODE_STEPS, smoke=False)
+        return router
+
+    rng = np.random.default_rng(3)
+    tokens = {name: rng.integers(0, get_config(arch).vocab_size, (1, MAX_SEQ)).astype(np.int32)
+              for name, arch in functions.items()}
+
+    def invoke(router, name, what, warm_ups):
+        c = (kf.launches, kd.launches)
+        out, rec = router.invoke(name, tokens[name])
+        got = (kf.launches - c[0], kd.launches - c[1])
+        n = layers[name]
+        want = (n * (1 + warm_ups), n * (DECODE_STEPS + warm_ups))
+        print(f"facade {name} {what}: {'COLD' if rec.cold else 'warm'} latency "
+              f"{rec.latency * 1e3:.2f} ms startup {rec.startup}; launches flash_attention, "
+              f"decode_attention {got} (expected {want})")
+        if got != want:
+            _fail(f"facade {name} {what}: launch counts {got} != {want}")
+        return out, rec
+
+    with tempfile.TemporaryDirectory() as snapdir:
+        store = SnapshotStore(snapdir)
+        router = router_for(300.0, store)
+        kf.launches = kd.launches = 0                 # the facade's path starts here
+        cold = {}
+        for name in functions:
+            out_c, rc = invoke(router, name, "first", warm_ups=1)
+            out_w, rw = invoke(router, name, "second", warm_ups=0)
+            if not (rc.cold and not rw.cold and rw.latency < rc.latency):
+                _fail(f"facade {name}: expected COLD then a faster warm request, got "
+                      f"{rc.cold}/{rc.latency:.4f} s then {rw.cold}/{rw.latency:.4f} s")
+            if not np.array_equal(out_c, out_w):
+                _fail(f"facade {name}: warm tokens {out_w} != cold tokens {out_c}")
+            cold[name] = (rc.startup, out_c)
+        print(format_summary("facade ttl=300", router.summary()))
+        zero = router_for(0.0, store)
+        for name in functions:
+            for i in range(2):
+                out, rec = invoke(zero, name, f"ttl0 request {i}", warm_ups=0)
+                if not rec.cold or not np.array_equal(out, cold[name][1]):
+                    _fail(f"facade {name} ttl 0 request {i}: cold={rec.cold}, tokens {out}")
+                _gate_restore(f"facade {functions[name]} ttl 0 request {i}",
+                              cold[name][0], rec.startup)
+        total = (kf.launches, kd.launches)            # read just after the facade's path
+        print(format_summary("facade ttl=0", zero.summary()))
+        print(f"facade launches: flash_attention {total[0]}, decode_attention {total[1]}")
+        if min(total) == 0:
+            _fail(f"a kernel of the facade's path was never launched: {total}")
+    _free(torch)
+
+
+# --------------------------------------------------------------------------- #
+# phase 10: the serve launcher; phase 11: the engine driver and calibration
+# --------------------------------------------------------------------------- #
+
+
+def launcher_phase():
+    import os
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "TMPDIR": tmp}
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", XLSTM,
+               "--requests", "3", "--ttl", "0", "--gap", "0.1", "--seq", "16",
+               "--decode-steps", "2"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines:
+        print(f"launcher | {ln}")
+    print(f"launcher: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    if (proc.returncode != 0 or sum(" COLD " in ln for ln in lines) != 3
+            or not lines or not lines[-1].startswith("summary")):
+        _fail(f"python -m repro_torch.launch.serve: exit {proc.returncode}, "
+              f"stderr {proc.stderr[-2000:]}")
+
+
+def drivers_phase():
+    """The engine driver on the card, then the closed calibration loop."""
+    import os
+
+    from repro_torch.analyze.calibrate import (fidelity_report, format_fidelity,
+                                               measured_costs, write_calibration)
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.events import EventLog
+    from repro_torch.experiments import registry, runner
+
+    base = CostModel()
+    events, functions = [], {}
+    for name in ENGINE_DRIVER_CELLS:
+        sc = registry.get(name)
+        log = EventLog()
+        t0 = time.perf_counter()
+        led = runner.run(sc, "engine", cost_model=base, events=log)
+        wall = time.perf_counter() - t0
+        n = len(list(runner.build_trace(sc)))
+        startups = [e for e in log.events if e["kind"] == "startup"]
+        print(f"drivers {name}: {len(led.records)} of {n} invocations served in {wall:.2f} s "
+              f"wall ({sc.engine.arch} SMOKE, clock x{sc.engine.clock_speed:g}), "
+              f"{len(startups)} startups, cold rate "
+              f"{led.summary()['cold_start_frequency']:.3f}")
+        if len(led.records) != n or n == 0:
+            _fail(f"engine driver {name}: {len(led.records)} of {n} invocations served")
+        if name != "engine_smoke":
+            events.extend(log.events)
+            functions.update(runner.build_trace(sc).functions)
+    calib = measured_costs(events, functions, base)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "calibration.json")
+        write_calibration(path, calib)
+        fitted = CostModel.from_calibration(path)
+    for key in ("compile_base_s", "load_bandwidth_gbps", "snapshot_restore_frac",
+                "resume_paused_s"):
+        print(f"calibration {key}: fitted {calib.get(key, 'no sample')} "
+              f"(default {getattr(base, key)})")
+    print(format_fidelity(fidelity_report(events, functions, base), title="fidelity[default]"))
+    rows = fidelity_report(events, functions, fitted)
+    print(format_fidelity(rows, title="fidelity[fitted]"))
+    if not rows:
+        _fail("the probe cells produced no startup samples")
+
+
 
 def main() -> int:
     import torch
@@ -917,6 +1236,12 @@ def main() -> int:
     hybrid_engine_phase(torch)
     cluster_phase(torch, dev)
     launches["cluster_step"], timed["cluster_step"] = batch_phase(torch, dev)
+    _free(torch)
+    xlstm_model_phase(torch, dev)
+    xlstm_engine_phase(torch)
+    facade_phase(torch)
+    launcher_phase()
+    drivers_phase()
 
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
                 "decode_attention": "src/repro/kernels/decode_attention.py:57",

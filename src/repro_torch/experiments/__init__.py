@@ -12,13 +12,15 @@ declaration:
                                          "num_functions": 20}),
                   policy="tiered_spes", seed=0)
     sim = run(sc, driver="sim")
+    fleet = run(sc, driver="fleet")
+    assert compare(sim, fleet).identical       # the calibration gate
     batch = run(sc, driver="batch")            # the card; device="cpu" asks for the CPU
 
 Named cells live in the registry (``get("calib/tiered_spes")``), grids in
 ``Sweep``\\ s (``run_sweep("csf_table5")``), and everything is reachable
 from the CLI: ``python -m repro_torch.experiments {list,run,sweep}``.
-The port runs the ``sim`` and ``batch`` drivers; ``fleet`` and ``engine``
-raise ``NotImplementedError`` until their slice (ROADMAP A2).
+The ``engine`` and ``batch`` drivers run on the card unless the caller
+passes ``device="cpu"``.
 """
 from repro_torch.experiments.registry import (UnknownScenarioError, get, get_sweep,
                                               names, register, register_sweep,

@@ -2,7 +2,7 @@
 ``python -m repro.experiments``).
 
     python -m repro_torch.experiments list [--json]
-    python -m repro_torch.experiments run NAME [--driver sim|batch]...
+    python -m repro_torch.experiments run NAME [--driver sim|fleet|engine|batch]...
                                    [--json PATH] [--events PATH]
                                    [--require-identical] [--device cuda|cpu]
     python -m repro_torch.experiments sweep NAME [--driver D]
@@ -10,9 +10,9 @@
                                    [--json PATH] [--progress]
                                    [--max-cells N] [--device cuda|cpu]
 
-The batch driver runs on ``--device`` (default ``cuda``: one launch of the
-hand kernel; without a card it raises unless ``--device cpu`` is given).
-The fleet and engine drivers are not ported yet (ROADMAP A2).
+The engine and batch drivers run on ``--device`` (default ``cuda``: the
+engines and the cluster-step kernel on the card; without a card they raise
+unless ``--device cpu`` is given).  ``sim`` and ``fleet`` take no device.
 
 ``run`` with several ``--driver`` flags replays the SAME scenario through
 each driver and prints the ledger diff; ``--require-identical`` exits
@@ -34,8 +34,8 @@ from repro_torch.experiments.spec import Scenario
 from repro_torch.experiments.sweep import Sweep
 
 
-DEVICE_HELP = ("where the batch driver runs (default cuda: the hand kernel; "
-               "cpu: its plain torch version)")
+DEVICE_HELP = ("where the engine and batch drivers run (default cuda: the "
+               "card; cpu: the plain torch versions)")
 
 
 def _parse_axis(text: str):

@@ -1,18 +1,19 @@
 """One entry point for every taxonomy cell: ``run(scenario, driver=...)``.
 
-The port of ``repro.experiments.runner``.  It runs the ``sim`` and
-``batch`` drivers; ``fleet``, ``engine`` and scenarios with a topology
-raise ``NotImplementedError`` until the router and fleet slice
-(ROADMAP A2).  ``batch`` runs on ``device`` ("cuda" unless the caller asks
-for "cpu"); ``sim`` is the host's event heap and takes no device.
+The port of ``repro.experiments.runner``.  ``engine`` and ``batch`` run on
+``device`` ("cuda" unless the caller asks for "cpu"); ``sim`` and ``fleet``
+are the host's event heap and virtual clock and take no device.
 
-Drivers of the reference:
+Drivers:
   sim     discrete-event simulator (``core/simulator.py``) — cost-model
           time, fully deterministic;
   fleet   concurrent fleet on a virtual clock (``fleet/loadgen.py``) —
           frontend queues, autoscaler, micro-batching, modeled backend;
-  engine  the fleet loop on a scaled wall clock with REAL JAX engines
-          (``serving`` backend): cold starts pay genuine XLA compiles.
+  engine  the fleet loop on a scaled wall clock with REAL engines
+          (``serving`` backend): cold starts pay a measured weight init and
+          warm-up on the device;
+  batch   the whole grid through the cluster-step kernel
+          (``core/batchsim.py``).
 
 All three return the same :class:`~repro.core.metrics.QoSLedger` schema,
 and :func:`compare` turns two ledgers into a field-for-field diff — the
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import json
 import math
+import dataclasses
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import (Callable, Dict, Iterator, List, Optional, Tuple, Union)
@@ -38,13 +40,6 @@ from repro_torch.experiments.spec import Scenario
 from repro_torch.experiments.sweep import Sweep
 
 DRIVERS = ("sim", "fleet", "engine", "batch")
-
-
-def not_ported(what: str) -> str:
-    """Why a driver of the reference is refused: it is not ported yet."""
-    return (f"the PyTorch port has no {what} yet (ROADMAP A2: the router, "
-            "fleet, engine and topology drivers); run it with the JAX "
-            "package, or with driver='sim' or 'batch'")
 
 # traces are deterministic in (workload spec, derived seed), so scenario
 # grids that share a workload reuse one build instead of regenerating it
@@ -98,7 +93,11 @@ def run(scenario: Union[str, Scenario], driver: str = "sim", *,
                 f"scenario {sc.name!r} has a topology; driver {driver!r} "
                 "is not supported (topology runs need per-node kernels — "
                 "use driver='sim' or 'fleet')")
-        raise NotImplementedError(not_ported("topology driver"))
+        from repro_torch.topology.driver import run_topology
+        if events is not None:
+            events.meta.setdefault("scenario", sc.name)
+            events.meta.setdefault("driver", driver)
+        return run_topology(sc, driver, cost_model=cm, events=events)
     if driver == "batch":
         if events is not None:
             raise ValueError("driver='batch' keeps aggregates, not "
@@ -106,15 +105,47 @@ def run(scenario: Union[str, Scenario], driver: str = "sim", *,
         from repro_torch.core.batchsim import simulate_batch
         return simulate_batch([sc], cost_model=cost_model,
                               trace_fn=build_trace, device=device)[0]
-    if driver != "sim":
-        raise NotImplementedError(not_ported(f"{driver} driver"))
     trace = build_trace(sc)
     if events is not None:
         events.meta.setdefault("scenario", sc.name)
         events.meta.setdefault("driver", driver)
-    from repro_torch.core.simulator import simulate
-    return simulate(trace, sc.suite(), cost_model=cm,
-                    cfg=sc.sim_config(), events=events)
+    if driver == "sim":
+        from repro_torch.core.simulator import simulate
+        return simulate(trace, sc.suite(), cost_model=cm,
+                        cfg=sc.sim_config(), events=events)
+    if driver == "fleet":
+        from repro_torch.fleet import replay
+        return replay(trace, sc.suite(), cost_model=cm,
+                      cfg=sc.fleet_config(), events=events)
+    return _run_engine(sc, trace, cm, events=events, device=device)
+
+
+def _run_engine(sc: Scenario, trace, cost_model,
+                events: Optional[EventLog] = None, device="cuda") -> QoSLedger:
+    """Real engines on ``device``, on a scaled wall clock."""
+    import time as _time
+
+    from repro_torch.fleet import (EngineBackend, EngineProfile, FleetRunner,
+                                   WallClock)
+    from repro_torch.serving.engine import SnapshotStore
+
+    es = sc.engine
+    store = SnapshotStore() if es.snapshots else None
+    backend = EngineBackend(store=store, device=device, profiles={
+        name: EngineProfile(arch=es.arch, max_seq=es.max_seq,
+                            batch=es.batch, decode_steps=es.decode_steps)
+        for name in trace.functions
+    })
+    suite = sc.suite()
+    if es.snapshots:
+        suite.startup = dataclasses.replace(suite.startup, snapshot=True)
+    if events is not None and events.wall_clock is None:
+        events.wall_clock = _time.perf_counter
+    runner = FleetRunner(trace, suite, cost_model=cost_model,
+                         cfg=sc.fleet_config(),
+                         clock=WallClock(speed=es.clock_speed),
+                         backend=backend, events=events)
+    return runner.run()
 
 
 def summarize(scenario: Union[str, Scenario], ledger) -> Dict[str, float]:

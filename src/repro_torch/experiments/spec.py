@@ -214,8 +214,14 @@ class Scenario:
                          worker_speed=self.cluster.worker_speed)
 
     def fleet_config(self):
-        from repro_torch.experiments.runner import not_ported
-        raise NotImplementedError(not_ported("fleet"))
+        from repro_torch.fleet import FleetConfig
+        return FleetConfig(num_workers=self.cluster.num_workers,
+                           worker_memory_mb=self.cluster.worker_memory_mb,
+                           worker_speed=self.cluster.worker_speed,
+                           slots_per_replica=self.cluster.slots_per_replica,
+                           max_batch=self.cluster.max_batch,
+                           slo_latency_s=self.cluster.admission_slo_s,
+                           seed=self.seed_for("loadgen"))
 
     # ---- overrides (sweep machinery) ---------------------------------- #
     def with_overrides(self, overrides: Mapping[str, Any]) -> "Scenario":

@@ -1,5 +1,5 @@
-"""Decoder-only language model (port of ``repro.models.lm``): attention and
-Mamba blocks with dense or MoE FFNs.  Vision inputs and the training loss
+"""Decoder-only language model (port of ``repro.models.lm``): attention,
+Mamba and xLSTM blocks with dense, MoE or no FFNs.  Vision inputs and the training loss
 come with later slices."""
 from __future__ import annotations
 
@@ -13,8 +13,9 @@ from repro_torch.models import layers, transformer
 
 class LM(nn.Module):
     """Parameters of the LM.  ``state_dict`` keys: ``embed``,
-    ``blocks.<layer>.{norm1,attn|ssm,norm2,ffn|moe}.<leaf>`` (MoE: ``router``,
-    ``wi``, ``wg``, ``wo`` stacked over experts, ``dense.<leaf>``),
+    ``blocks.<layer>.{norm1,attn|ssm|xl,norm2,ffn|moe}.<leaf>`` (MoE: ``router``,
+    ``wi``, ``wg``, ``wo`` stacked over experts, ``dense.<leaf>``; sLSTM:
+    ``xl.{gi,gf,gz,go}.{wx,wh,b}``),
     ``norm_f.<leaf>`` and, for untied configs, ``unembed`` — every dense
     weight ``(in, out)``."""
 
@@ -88,7 +89,7 @@ def _pad_seq(t, s_cache: int):
 
 def _format_caches(cfg, raw_caches, *, seq_len: int, max_seq: int, window):
     """Pack per-layer prefill keys/values into the fixed decode layout;
-    recurrent (Mamba) states are decode-ready and pass through."""
+    recurrent (Mamba, mLSTM, sLSTM) states are decode-ready and pass through."""
     s_cache = min(window, max_seq) if window else max_seq
     out = []
     for kind, c in zip(cfg.layer_pattern, raw_caches):

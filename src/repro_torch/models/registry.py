@@ -58,7 +58,7 @@ def build(cfg: ModelConfig, shape: Optional[InputShape] = None, *,
     dev = resolve_device(device)
     window = resolve_window(cfg, shape)
     mseq = max_seq or (shape.seq_len if shape else 2048)
-    transformer._block_meta(cfg)   # unported block kinds fail here, not mid-init
+    transformer._block_meta(cfg)   # a bad pattern fails here, not mid-init
     return ModelBundle(
         cfg=cfg, shape=shape, max_seq=mseq, window=window, device=dev,
         init=lambda gen: lm.init_lm(gen, cfg, max_seq=mseq, device=dev),

@@ -3,9 +3,9 @@
 The JAX package stacks parameters over the repeats of a block *period* and
 runs them under ``lax.scan``; PyTorch runs eagerly, so here the layers are an
 ``nn.ModuleList`` walked by a Python loop and each layer keeps its own cache.
-Each block is a mixer — GQA attention (``"A"``) or Mamba (``"M"``) — and a
-dense or routed-MoE FFN.  xLSTM blocks (``L``/``S``) raise
-``NotImplementedError``: they come with ROADMAP item A5.
+Each block is a mixer — GQA attention (``"A"``), Mamba (``"M"``), mLSTM
+(``"L"``) or sLSTM (``"S"``) — and a dense or routed-MoE FFN, or none
+(xLSTM blocks carry their own projections: ``d_ff = 0``).
 
 Modes:
   full   — prefill over (B, S); returns per-layer cache material
@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 
-from repro_torch.models import attention, layers, mamba, moe
+from repro_torch.models import attention, layers, mamba, moe, xlstm
 
 
 # --------------------------------------------------------------------------- #
@@ -45,10 +45,8 @@ def _block_meta(cfg) -> List[Dict[str, Any]]:
     pat = cfg.layer_pattern
     out = []
     for i in range(per):
-        if pat[i] not in "AM":
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {pat[i]!r} is not ported yet: xLSTM "
-                "blocks come with ROADMAP item A5 (the remaining model families)")
+        if pat[i] not in "AMLS":
+            raise ValueError(f"{cfg.name}: unknown block kind {pat[i]!r}")
         ffn = "moe" if moe_mask[i] else ("dense" if cfg.d_ff else "none")
         out.append({"kind": pat[i], "ffn": ffn})
     return out
@@ -60,16 +58,21 @@ def _block_meta(cfg) -> List[Dict[str, Any]]:
 
 
 class Block(nn.Module):
-    """``norm1`` + ``attn`` or ``ssm``; ``norm2`` + ``ffn`` or ``moe`` (the
-    JAX tree's names)."""
+    """``norm1`` + ``attn``, ``ssm`` or ``xl``; ``norm2`` + ``ffn`` or ``moe``
+    where the block has an FFN (the JAX tree's names)."""
 
     def __init__(self, cfg, meta, *, device, gen: Optional[torch.Generator] = None):
         super().__init__()
         self.norm1 = layers.norm_init(cfg.d_model, cfg.norm, cfg.param_dtype, device=device)
-        if meta["kind"] == "A":
+        kind = meta["kind"]
+        if kind == "A":
             self.attn = attention.Attention(cfg, device=device, gen=gen)
-        else:
+        elif kind == "M":
             self.ssm = mamba.Mamba(cfg, device=device, gen=gen)
+        elif kind == "L":
+            self.xl = xlstm.MLSTM(cfg, device=device, gen=gen)
+        else:
+            self.xl = xlstm.SLSTM(cfg, device=device, gen=gen)
         if meta["ffn"] != "none":
             self.norm2 = layers.norm_init(cfg.d_model, cfg.norm, cfg.param_dtype,
                                           device=device)
@@ -105,8 +108,12 @@ def _block_full(p: Block, x, cfg, q_pos, window):
         y, (k, v) = attention.full_attention(p.attn, h, cfg, q_pos=q_pos,
                                              window=window, return_kv=True)
         cache = {"k": k, "v": v}
-    else:
+    elif hasattr(p, "ssm"):
         y, cache = mamba.mamba_forward(p.ssm, h, cfg)
+    elif isinstance(p.xl, xlstm.MLSTM):
+        y, cache = xlstm.mlstm_forward(p.xl, h, cfg)
+    else:
+        y, cache = xlstm.slstm_forward(p.xl, h, cfg)
     x, aux = _apply_ffn(p, x + y, cfg)
     return x, aux, cache
 
@@ -116,8 +123,12 @@ def _block_decode(p: Block, x, cfg, pos, window, cache):
     h = layers.norm_apply(p.norm1, x, cfg.norm)
     if hasattr(p, "attn"):
         y, cache = attention.decode_attention(p.attn, h, cache, pos, cfg, window=window)
-    else:
+    elif hasattr(p, "ssm"):
         y, cache = mamba.mamba_step(p.ssm, h, cache, cfg)
+    elif isinstance(p.xl, xlstm.MLSTM):
+        y, cache = xlstm.mlstm_step(p.xl, h, cache, cfg)
+    else:
+        y, cache = xlstm.slstm_step(p.xl, h, cache, cfg)
     x, _ = _apply_ffn(p, (x + y)[:, None, :], cfg)
     return x[:, 0, :], cache
 
@@ -148,9 +159,12 @@ def stack_decode(blocks: nn.ModuleList, x, cfg, *, pos, window=None, caches=None
 
 
 def init_decode_caches(cfg, batch: int, max_seq: int, *, window=None, device):
-    """Allocate one zero cache (attention) or state (Mamba) per layer."""
+    """Allocate one zero cache (attention) or initial recurrent state (Mamba,
+    mLSTM, sLSTM) per layer."""
     metas = _block_meta(cfg)
-    return [attention.init_cache(cfg, batch, max_seq, window=window, device=device)
-            if metas[i % len(metas)]["kind"] == "A"
-            else mamba.init_mamba_state(cfg, batch, device=device)
-            for i in range(cfg.num_layers)]
+    init = {"A": lambda: attention.init_cache(cfg, batch, max_seq, window=window,
+                                              device=device),
+            "M": lambda: mamba.init_mamba_state(cfg, batch, device=device),
+            "L": lambda: xlstm.init_mlstm_state(cfg, batch, device=device),
+            "S": lambda: xlstm.init_slstm_state(cfg, batch, device=device)}
+    return [init[metas[i % len(metas)]["kind"]]() for i in range(cfg.num_layers)]

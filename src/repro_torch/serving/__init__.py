@@ -1,1 +1,2 @@
-"""Real-execution serving: the measured-cold-start inference engine."""
+"""Real-execution serving: the measured-cold-start inference engine and the
+serverless router over it."""

@@ -14,10 +14,11 @@ in the same four measured phases as the JAX engine:
                  source hash and timed apart as ``build_s``)
   execute        the requests
 
-Mitigation paths: snapshot/restore (a ``torch.save`` state dict + a
-process-level cache of loaded libraries and warmed keys: a restore of a
-warmed key skips the warm-up, as a JAX restore skips the compile) and
-scale-to-zero (``shutdown()``).  ``fuse_chain`` comes with a later slice.
+Mitigation paths: snapshot/restore (a ``torch.save`` state dict with a
+pinned host copy in process, and a process-level cache of loaded libraries
+and warmed keys: a restore of a warmed key skips the warm-up, as a JAX
+restore skips the compile) and scale-to-zero (``shutdown()``).
+``fuse_chain`` comes with a later slice.
 
 Every phase ends in ``torch.cuda.synchronize()`` before its clock stops.
 """
@@ -72,18 +73,26 @@ class _Timer:
 
 
 class SnapshotStore:
-    """Weight snapshots on disk + a cache of ready "executables" in process.
+    """Weight snapshots on disk, a pinned host copy of each in process, and a
+    cache of ready "executables" in process.
 
-    A snapshot is the engine's ``state_dict`` written by ``torch.save`` and
-    read back with ``weights_only=True`` straight onto the device: no pickle
-    of foreign types.  The executable cache maps an engine key to its loaded
-    kernel libraries; a key present there has been warmed up in this process.
+    A snapshot is the engine's ``state_dict`` written by ``torch.save``; the
+    file is the source of truth.  Where CUDA is present, ``save_params`` also
+    keeps a page-locked host copy of every tensor (outside the timed phases,
+    as the snapshot itself is written), and ``load_params`` fills tensors
+    allocated on the device from it with asynchronous copies: the restore
+    then runs at the host link's rate instead of the disk's.  A store without
+    that copy (a new process, or the CPU) reads the file, memory-mapped,
+    with ``weights_only=True``: no pickle of foreign types.  The executable
+    cache maps an engine key to its loaded kernel libraries; a key present
+    there has been warmed up in this process.
     """
 
     def __init__(self, root: Optional[str] = None):
         self.root = root or os.path.join(tempfile.gettempdir(), "coldtorch_snapshots")
         os.makedirs(self.root, exist_ok=True)
         self.executables: Dict[str, Any] = {}
+        self.host: Dict[str, Dict[str, torch.Tensor]] = {}
 
     # params ------------------------------------------------------------- #
     def _path(self, key: str) -> str:
@@ -95,12 +104,22 @@ class SnapshotStore:
     def save_params(self, key: str, state: Mapping[str, torch.Tensor]) -> int:
         path = self._path(key)
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({k: v.detach() for k, v in state.items()}, tmp)
+        state = {k: v.detach() for k, v in state.items()}
+        torch.save(state, tmp)
         os.replace(tmp, path)
+        if torch.cuda.is_available():
+            self.host[key] = {k: torch.empty_like(v, device="cpu", pin_memory=True).copy_(v)
+                              for k, v in state.items()}
         return os.path.getsize(path)
 
     def load_params(self, key: str, device: Union[str, torch.device]) -> Dict[str, torch.Tensor]:
-        return torch.load(self._path(key), weights_only=True, map_location=device)
+        """The snapshot's tensors on ``device``.  Copies from the pinned host
+        copy are asynchronous: the caller synchronises before it reads them."""
+        src = self.host.get(key)
+        if src is None:
+            src = torch.load(self._path(key), weights_only=True, mmap=True,
+                             map_location="cpu")
+        return {k: v.to(device, non_blocking=v.is_pinned()) for k, v in src.items()}
 
     # executables ---------------------------------------------------------- #
     def get_executable(self, key: str):
@@ -134,13 +153,15 @@ class InferenceEngine:
 
     def __init__(self, arch: str, *, smoke: bool = True, max_seq: int = 128,
                  batch: int = 1, store: Optional[SnapshotStore] = None,
-                 seed: int = 0, device: Union[str, torch.device] = "cuda"):
+                 runtime: str = "python-jit", seed: int = 0,
+                 device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.arch = arch
         self.smoke = smoke
         self.max_seq = max_seq
         self.batch = batch
         self.store = store
+        self.runtime = runtime    # the reference's label; the port runs eagerly
         self.seed = seed
         self.params = None
         self.bundle = None
@@ -209,12 +230,27 @@ class InferenceEngine:
         self.warm = False
 
     # ------------------------------------------------------------------ #
+    def _check_extras(self, extras: Mapping[str, np.ndarray]) -> None:
+        """The reference compiles its prefill for one batch spec: tokens, plus
+        ``frames`` for an encoder and ``image_embeds`` for a vision config."""
+        cfg = self.bundle.cfg
+        usable = {"frames": cfg.encoder is not None,
+                  "image_embeds": cfg.vision is not None}
+        for key in extras:
+            if not usable.get(key, False):
+                raise ValueError(f"{self.arch}: the prefill takes no {key!r} input")
+            raise NotImplementedError(
+                f"{self.arch}: {key!r} inputs are not ported yet (ROADMAP item A5)")
+
     @torch.inference_mode()
-    def serve(self, tokens: np.ndarray, *, decode_steps: int = 8) -> Tuple[np.ndarray, ServeStats]:
+    def serve(self, tokens: np.ndarray, *, decode_steps: int = 8,
+              extras: Optional[Mapping[str, np.ndarray]] = None
+              ) -> Tuple[np.ndarray, ServeStats]:
         """Greedy generation; measures prefill + decode wall time.
 
         ``tokens`` is (batch, max_seq), the one prefill shape the engine was
-        warmed for (the JAX engine's compiled shape).
+        warmed for (the JAX engine's compiled shape).  ``extras`` are merged
+        into the prefill batch, as in the reference.
         """
         if not self.warm:
             raise RuntimeError("cold engine — call cold_start() first")
@@ -226,18 +262,24 @@ class InferenceEngine:
         if tokens.min() < 0 or tokens.max() >= vocab:
             # an out-of-range id would be a device-side assert in the gather
             raise ValueError(f"token ids must lie in [0, {vocab})")
-        out, stats = generate(self.bundle, self.params, tokens, decode_steps=decode_steps)
+        if extras:
+            self._check_extras(extras)
+        out, stats = generate(self.bundle, self.params, tokens, decode_steps=decode_steps,
+                              extras=extras)
         self.last_used = time.monotonic()
         return out, stats
 
 
 @torch.inference_mode()
 def generate(bundle: registry.ModelBundle, params, tokens: np.ndarray, *,
-             decode_steps: int) -> Tuple[np.ndarray, ServeStats]:
+             decode_steps: int, extras: Optional[Mapping[str, np.ndarray]] = None
+             ) -> Tuple[np.ndarray, ServeStats]:
     """The engine's request loop on any bundle: one prefill, then greedy
     decode steps, each part timed up to a device synchronise."""
     stats = ServeStats()
     batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(bundle.device)}
+    if extras:
+        batch.update({k: torch.as_tensor(v).to(bundle.device) for k, v in extras.items()})
     t0 = time.perf_counter()
     logits, caches, pos = bundle.prefill(params, batch)
     _sync(bundle.device)

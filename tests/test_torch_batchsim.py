@@ -256,12 +256,6 @@ def test_sweep_cli_batch_matches_reference(tmp_path):
 
 
 def test_unported_drivers_and_suites_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        trun.run("calib/default", "fleet")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        trun.run("engine_smoke", "engine")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        trun.run("calib/topo_basic", "sim")
     with pytest.raises(ValueError, match="topology"):
         trun.run("calib/topo_basic", "batch", device="cpu")
     from repro_torch.core.policies import suite

@@ -353,3 +353,25 @@ def test_ssm_scan_on_cpu_tensors_launches_nothing():
     assert tssm.launches == before
     want_y, want_h = tssm.ssm_scan_plain(*args)
     assert torch.equal(y, want_y) and torch.equal(h, want_h)
+
+
+def test_snapshot_restores_from_pinned_copy_and_file_agree(cuda, tmp_path):
+    """The snapshot store's two restore paths give the saved tensors: the
+    pinned host copy (kept at save time) and the memory-mapped file (a store
+    without that copy, as a new process has)."""
+    from repro_torch.serving.engine import SnapshotStore
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = {"w": torch.randn((64, 48), generator=gen, device=cuda).bfloat16(),
+             "b": torch.randn((48,), generator=gen, device=cuda),
+             "i": torch.arange(7, device=cuda)}
+    store = SnapshotStore(str(tmp_path))
+    store.save_params("k", state)
+    assert all(t.is_pinned() for t in store.host["k"].values())
+    for source in (store, SnapshotStore(str(tmp_path))):
+        got = source.load_params("k", cuda)
+        torch.cuda.synchronize()
+        assert set(got) == set(state)
+        for name, t in got.items():
+            assert t.device.type == "cuda" and t.dtype == state[name].dtype
+            assert torch.equal(t, state[name]), name

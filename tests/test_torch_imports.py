@@ -52,7 +52,19 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.experiments.__main__", "repro_torch.topology.spec",
                  # the hybrid Mamba + MoE family's slice
                  "repro_torch.kernels.ssm_scan", "repro_torch.models.mamba",
-                 "repro_torch.models.moe"):
+                 "repro_torch.models.moe",
+                 # the xLSTM family and the router / fleet facade's slice
+                 "repro_torch.models.xlstm", "repro_torch.serving.router",
+                 "repro_torch.fleet", "repro_torch.fleet.pool",
+                 "repro_torch.fleet.loadgen", "repro_torch.fleet.autoscaler",
+                 "repro_torch.fleet.frontend", "repro_torch.fleet.clock",
+                 "repro_torch.topology", "repro_torch.topology.driver",
+                 "repro_torch.topology.policies", "repro_torch.topology.qos",
+                 "repro_torch.analyze", "repro_torch.analyze.calibrate",
+                 "repro_torch.analyze.reader", "repro_torch.analyze.stats",
+                 "repro_torch.analyze.plots", "repro_torch.analyze.cli",
+                 "repro_torch.analyze.__main__", "repro_torch.launch",
+                 "repro_torch.launch.serve"):
         assert name in got["modules"]
 
 

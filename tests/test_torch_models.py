@@ -150,7 +150,7 @@ def test_lifecycle_copy_equals_the_reference():
     assert [t.value for t in tlifecycle.WarmthTier] == [t.value for t in jlifecycle.WarmthTier]
 
 
-@pytest.mark.parametrize("arch", ["xlstm_125m", "whisper_large_v3", "internvl2_1b"])
+@pytest.mark.parametrize("arch", ["whisper_large_v3", "internvl2_1b"])
 def test_unported_families_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="A5"):
         tregistry.build_arch(arch, smoke=True, max_seq=16, device="cpu").init(
