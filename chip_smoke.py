@@ -62,7 +62,28 @@ Phases, each fatal on failure:
                under the engine driver on the card (every invocation
                served), the cost model fitted from the two probes' events
                (analyze.calibrate, written to a temporary file) and the
-               fidelity rows before and after.
+               fidelity rows before and after;
+ 12. gym-kernel — the cluster step with a step offset and per-function
+               extras against its plain version: the fixtures (warp layout)
+               and the wide table (block layout); batch_dense64's tables in
+               60-step epochs, kernel and plain version each chained, compared
+               epoch by epoch, and the chain against one sweep launch; the
+               extras-free sweep launch timed beside the extras launch;
+ 13. gym     — BatchSimGym(training_scenarios()) on the card:
+               baseline_rewards with exactly one cluster-step launch an epoch
+               (counted) and evaluate_schedule on the committed schedule,
+               each against the same gym on the CPU; the gym's launch timed
+               against its bound; train_agent (3 episodes) and
+               export_schedule; wall per epoch and per episode, and the busy
+               share of one traced episode;
+ 14. forecaster — the committed checkpoint read without JAX;
+               apply_forecaster card vs CPU on 64 windows; 2 flash launches
+               and the ms of a prediction; the learn scenario under
+               prewarm_transformer (sim driver, predictors on the card; the
+               flash launches counted) against the same run on the CPU, and
+               one learn_grid cell under prewarm_lstm (horizon cut to 300 s).
+The kernel phase also holds the flash kernel to its plain version at the
+forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it.
 The granite engine phase also restores from the snapshot file alone (a store
 with no pinned host copy, as a new process has) beside the pinned restore,
 and holds the pinned restore under the cold start (C2).
@@ -748,13 +769,14 @@ def _cluster_agree(got, want):
     return err, ok
 
 
-def _cluster_bound(args, outs):
+def _cluster_bound(args, outs, t_begin: int = 0):
     """Least time for one launch on this run's inputs, over its active steps
-    (those inside each cell's horizon): every input read once and every
-    output written once, except ``conc``, which the kernel reads only in
-    active steps; against the operations of the active steps, counted from
-    the kernel's arithmetic (about 70 per function and 22 per (function,
-    worker) pair in a step whose expiry walk stops at its first edge)."""
+    (those inside each cell's horizon; the launch's steps start at step
+    ``t_begin``): every input read once and every output written once,
+    except ``conc``, which the kernel reads only in active steps; against
+    the operations of the active steps, counted from the kernel's arithmetic
+    (about 70 per function and 22 per (function, worker) pair in a step
+    whose expiry walk stops at its first edge)."""
     import math
 
     from repro_torch.kernels import ref as R
@@ -762,7 +784,7 @@ def _cluster_bound(args, outs):
     nw, arrivals, conc, scal = args[0], args[3], args[4], args[10]
     _, f, w = nw.shape
     t_steps = arrivals.shape[1]
-    active = sum(min(t_steps, math.ceil(float(h) / float(dt)))
+    active = sum(min(t_steps, max(0, math.ceil(float(h) / float(dt)) - t_begin))
                  for h, dt in scal[:, [R.SC_HORIZON, R.SC_DT]].tolist())
     nbytes = (_nbytes(*(a for a in args if a is not conc), *outs)
               + active * f * conc.element_size())
@@ -876,16 +898,17 @@ def batch_phase(torch, dev):
         print(f"batch {grid}: build_tables {build_s:.3f} s (traces cached), kernel "
               f"{kernel_ms:.4f} ms, simulate_batch wall {sim_s:.3f} s, {invocations} "
               f"invocations, {invocations / sim_s:.1f} invocations/s")
-        _profile_batch(torch, sim_s,
-                       lambda: batchsim.simulate_batch(cells, trace_fn=runner.build_trace))
+        _profile_call(torch, sim_s,
+                      lambda: batchsim.simulate_batch(cells, trace_fn=runner.build_trace),
+                      "batch call")
     _spot_check(torch)
     return launches, timed
 
 
-def _profile_batch(torch, wall_s, call):
-    """Device busy share of one simulate_batch call (tables, copies, launch,
-    ledgers): the device time from a traced call over the wall time of an
-    unprofiled one (the first trace also pays the profiler's start-up)."""
+def _profile_call(torch, wall_s, call, label):
+    """Device busy share of one ``call()``: the device time from a traced call
+    over the wall time of an unprofiled one (the first trace also pays the
+    profiler's start-up); the device activities and the top kernels."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -895,15 +918,18 @@ def _profile_batch(torch, wall_s, call):
         call()
         torch.cuda.synchronize()
     by_name = defaultdict(float)
+    n = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
+            n += 1
     busy = sum(by_name.values())
     if busy == 0:
-        print("profile batch call: no device time recorded (not measured)")
+        print(f"profile {label}: no device time recorded (not measured)")
         return
-    print(f"profile batch call: wall {wall_s * 1e3:.2f} ms (unprofiled), device time "
-          f"{busy / 1e3:.3f} ms, busy share {busy / (wall_s * 1e6):.5f}")
+    print(f"profile {label}: wall {wall_s * 1e3:.2f} ms (unprofiled), device time "
+          f"{busy / 1e3:.3f} ms, busy share {busy / (wall_s * 1e6):.5f}, {n} device "
+          f"activities")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
         print(f"profile   {us / 1e3:9.3f} ms  {name[:90]}")
 
@@ -1189,6 +1215,384 @@ def drivers_phase():
 
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the gym's cluster-step launch (step offset + per-function extras)
+# --------------------------------------------------------------------------- #
+GYM_EPOCH = 60                  # the gym's epoch_steps (repro_torch.learn.gym)
+# the shortest dependent chain of one active step, counted from the warp
+# kernel's code (csrc/cluster_step.cu's header: ~470 cycles at 1.98 GHz)
+CHAIN_FLOOR_US = 0.24
+GYM_CHAIN_GRID = "batch_dense64"
+
+
+def _cluster_gym_compare(torch, name, args, t_begin):
+    """The extras kernel against the plain version with a step offset,
+    fatal on a disagreement; returns (got, max |err|)."""
+    from repro_torch.kernels import cluster_step as kc
+
+    got = kc.cluster_sim_hopper(*args, t_begin=t_begin, extras=True)
+    want = kc.cluster_sim_plain(*args, t_begin=t_begin, extras=True)
+    torch.cuda.synchronize()
+    err, ok = _cluster_agree(got, want)
+    c, f, w = args[0].shape
+    print(f"gym-kernel {name} C={c} F={f} W={w} K={args[7].shape[2]} T={args[3].shape[1]} "
+          f"t_begin={t_begin} layout={kc.layout(f, w, args[7].shape[2])} extras "
+          f"{tuple(got[4].shape)}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail(f"cluster_step extras {name} (t_begin {t_begin}) disagrees with its plain version")
+    return got, err
+
+
+def _epochs(torch, a, e_steps):
+    """(C, T, F) -> one contiguous (C, e_steps, F) tensor an epoch, T padded
+    with zeros to whole epochs (those steps lie past every horizon)."""
+    c, t, f = a.shape
+    n = -(-t // e_steps)
+    pad = torch.zeros((c, n * e_steps - t, f), dtype=a.dtype, device=a.device)
+    full = torch.cat([a, pad], dim=1)
+    return [full[:, e * e_steps:(e + 1) * e_steps].contiguous() for e in range(n)]
+
+
+def gym_kernel_phase(torch, dev):
+    """The fixtures (warp layout) and the wide table (block layout) with a
+    step offset and extras; then batch_dense64's tables in 60-step epochs,
+    kernel and plain version each chained with its own state, compared epoch
+    by epoch; then the extras-free sweep launch re-timed beside the extras
+    launch, in turns."""
+    import numpy as np
+    from repro_torch.core import batchsim
+    from repro_torch.experiments import registry, runner
+    from repro_torch.kernels import cluster_step as kc
+    from repro_torch.kernels import ref as R
+
+    cases = [(f"fixture{s}", 3 + 4 * s,
+              kernel_order(random_tables(np.random.default_rng(s)))) for s in range(3)]
+    cases.append(("wide", 70, kernel_order(random_tables(
+        np.random.default_rng(3), C=64, F=256, W=64, K=8, T=256, worker_mb=262144.0))))
+    for name, t_begin, arrays in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+        _cluster_gym_compare(torch, name, args, t_begin)
+
+    cells = registry.get_sweep(GYM_CHAIN_GRID).scenarios()
+    tables = batchsim.build_tables(cells, trace_fn=runner.build_trace)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in table_args(tables)]
+    arr_e, conc_e = _epochs(torch, args[3], GYM_EPOCH), _epochs(torch, args[4], GYM_EPOCH)
+    k_state, p_state = args[:3], args[:3]
+    k_agg = torch.zeros((args[0].shape[0], R.AG_N), dtype=torch.float32, device=dev)
+    worst, plain_s = 0.0, 0.0
+    for e, (a, c) in enumerate(zip(arr_e, conc_e)):
+        ep = [*k_state, a, c, *args[5:]]
+        got = kc.cluster_sim_hopper(*ep, t_begin=e * GYM_EPOCH, extras=True)
+        t0 = time.perf_counter()
+        want = kc.cluster_sim_plain(*p_state, a, c, *args[5:], t_begin=e * GYM_EPOCH,
+                                    extras=True)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        err, ok = _cluster_agree(got, want)
+        worst = max(worst, err)
+        if not ok:
+            _fail(f"{GYM_CHAIN_GRID} epoch {e}: chained kernel state / agg / extras "
+                  f"disagree with the chained plain version")
+        k_state, p_state = got[:3], want[:3]
+        k_agg = k_agg + got[3]
+    print(f"gym-kernel {GYM_CHAIN_GRID} in {len(arr_e)} chained epochs of {GYM_EPOCH} steps "
+          f"(C={args[0].shape[0]} F={args[0].shape[1]} W={args[0].shape[2]}): state, agg and "
+          f"extras within rtol {CLUSTER_TOL['rtol']} atol {CLUSTER_TOL['atol']} every epoch, "
+          f"max_abs_err={worst:.3e}; plain chain {plain_s:.2f} s")
+    whole = kc.cluster_sim_hopper(*args)
+    err, ok = _cluster_agree([*k_state, k_agg], whole)
+    print(f"gym-kernel {GYM_CHAIN_GRID}: {len(arr_e)} chained launches vs one sweep launch: "
+          f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail(f"{GYM_CHAIN_GRID}: the chained epochs end elsewhere than the one-launch sweep")
+    sweep = lambda: kc.cluster_sim_hopper(*args)                               # noqa: E731
+    extras = lambda: kc.cluster_sim_hopper(*args, extras=True)                 # noqa: E731
+    times = [_graph_ms(torch, fn, reps=2, iters=5) for fn in (sweep, extras, extras, sweep)]
+    print(f"time cluster_step fp32 ({GYM_CHAIN_GRID}, one launch over T "
+          f"{args[3].shape[1]}), device (graph replay), in turns sweep / extras / extras / "
+          f"sweep: {' / '.join(f'{t:.4f}' for t in times)} ms (the sweep kernel before the "
+          f"extras: 1.51 ms, PERF.md §6)")
+    return dict(sweep_ms=(times[0] + times[3]) / 2, extras_ms=(times[1] + times[2]) / 2)
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: the RL keep-alive gym and the DQN agent on the card
+# --------------------------------------------------------------------------- #
+SCHEDULE = ROOT / "checkpoints" / "keepalive_schedule.json"
+
+
+def _same_eval(what, got, want):
+    ok = (abs(got["reward"] - want["reward"]) <= 1e-4 * abs(want["reward"])
+          and abs(got["cold_starts"] - want["cold_starts"]) <= 1e-2
+          and abs(got["idle_gb_s"] - want["idle_gb_s"])
+          <= CLUSTER_TOL["atol"] + CLUSTER_TOL["rtol"] * abs(want["idle_gb_s"]))
+    print(f"gym {what}: card reward {got['reward']:.4f} cold {got['cold_starts']:.4f} idle "
+          f"{got['idle_gb_s']:.4f} | CPU reward {want['reward']:.4f} cold "
+          f"{want['cold_starts']:.4f} idle {want['idle_gb_s']:.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail(f"gym {what}: the card disagrees with the CPU")
+
+
+def gym_phase(torch, dev):
+    """BatchSimGym(training_scenarios()) on the card: baseline_rewards (one
+    cluster-step launch an epoch, counted), evaluate_schedule on the
+    committed schedule, each against the same gym on the CPU; the gym's
+    launch timed against its bound; train_agent + export_schedule; wall per
+    epoch and per episode, and the busy share of one traced episode."""
+    import numpy as np
+    from repro_torch.kernels import cluster_step as kc
+    from repro_torch.learn import agent
+    from repro_torch.learn.gym import BatchSimGym, training_scenarios
+
+    gym = BatchSimGym(training_scenarios(), device=dev)
+    host = BatchSimGym(training_scenarios(), device="cpu")
+    print(f"gym: C={gym.C} F={gym.F} W={gym.tables.nw.shape[2]} K={gym.tables.dwell.shape[2]}, "
+          f"{gym.num_epochs} epochs of {gym.epoch_steps} steps (T {gym.tables.arrivals.shape[1]} "
+          f"padded to {gym.num_epochs * gym.epoch_steps}), {len(gym.actions)} actions")
+    gym.baseline_rewards()                          # warm-up (build, caching allocator)
+    kc.launches = 0                                 # the gym's main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = gym.baseline_rewards()
+    wall = time.perf_counter() - t0
+    launches = kc.launches                          # read just after it
+    want = len(gym.actions) * gym.num_epochs
+    print(f"gym baseline_rewards on the card: {launches} cluster_step launches (expected "
+          f"{len(gym.actions)} actions x {gym.num_epochs} epochs = {want}) in {wall:.3f} s, "
+          f"{wall / want * 1e3:.3f} ms an epoch, {wall / len(gym.actions) * 1e3:.2f} ms an "
+          f"episode")
+    if launches != want:
+        _fail(f"gym baseline_rewards: {launches} cluster_step launches != {want}")
+    t0 = time.perf_counter()
+    host_base = host.baseline_rewards()
+    print(f"gym baseline_rewards on the CPU (plain version): {time.perf_counter() - t0:.2f} s")
+    for a in gym.actions:
+        _same_eval(f"fixed {a:g} s", base[a], host_base[a])
+    sched = json.loads(SCHEDULE.read_text())
+    _same_eval("evaluate_schedule(checkpoints/keepalive_schedule.json)",
+               agent.evaluate_schedule(gym, sched["warm_s"]),
+               agent.evaluate_schedule(host, sched["warm_s"]))
+
+    # the gym's launch alone: a mid-episode epoch (every step inside the horizon)
+    e = gym.num_epochs // 2
+    state, _ = gym.reset()
+    grid = torch.full((gym.C, gym.F), 30.0, device=dev)
+    for _ in range(e):
+        state, _, _, _ = gym.step(state, grid)
+    ep_args, t_begin = gym.launch_args(state, grid)
+    out = kc.cluster_sim_hopper(*ep_args, t_begin=t_begin, extras=True)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    kc.cluster_sim_plain(*ep_args, t_begin=t_begin, extras=True)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    launch = lambda: kc.cluster_sim_hopper(*ep_args, t_begin=t_begin, extras=True)  # noqa: E731
+    ms = _graph_ms(torch, launch, reps=20, iters=10)
+    launch_ms = _time_ms(torch, launch, iters=50)
+    bound = _cluster_bound(ep_args, out, t_begin=t_begin)
+    print(f"time cluster_step fp32 (gym epoch {e}: C={gym.C} F={gym.F} E={gym.epoch_steps}, "
+          f"extras): kernel {ms:.4f} ms device (graph replay), {launch_ms:.4f} ms launch by "
+          f"launch; plain {plain_ms:.3f} ms (one call), library none, bound {bound[0]:.6f} ms "
+          f"({bound[1]}); chain floor {gym.epoch_steps * CHAIN_FLOOR_US / 1e3:.4f} ms "
+          f"({gym.epoch_steps} dependent steps)")
+    _, err = _cluster_gym_compare(torch, f"gym epoch {e}", ep_args, t_begin)
+
+    t0 = time.perf_counter()
+    params, hist = agent.train_agent(gym, episodes=3, log_every=1)
+    train_s = time.perf_counter() - t0
+    warm_s, metrics, method = agent.export_schedule(gym, params, log_fn=print)
+    losses = [h["loss"] for h in hist]
+    print(f"gym train_agent(episodes=3) on the card: {train_s:.2f} s "
+          f"({train_s / 3:.2f} s an episode), losses {losses}; export_schedule {method}: "
+          f"reward {metrics['reward']:.4f}, warm_s {warm_s}")
+    if not all(np.isfinite(losses)):
+        _fail(f"train_agent losses not finite: {losses}")
+    names = {n for fn in gym.function_names for n in fn}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "schedule.json"
+        agent.save_schedule(str(path), warm_s, meta={"method": method, "episodes": 3})
+        got = json.loads(path.read_text())
+    if (set(got) != set(sched) or set(warm_s) != names
+            or not set(warm_s.values()) <= set(gym.actions)):
+        _fail(f"exported schedule does not follow checkpoints/keepalive_schedule.json: {got}")
+
+    episode = lambda: gym.evaluate(np.full((gym.C, gym.F), 30.0, np.float32))  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    episode()
+    wall_ep = time.perf_counter() - t0
+    _profile_call(torch, wall_ep, episode,
+                  f"gym episode (evaluate, {gym.num_epochs} epochs)")
+    return launches, dict(max_abs_err=err, ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
+                          library_ms=None, bound=bound)
+
+
+# --------------------------------------------------------------------------- #
+# phase 14: the trained forecaster and the learned predictors on the card
+# --------------------------------------------------------------------------- #
+FORECASTER_CKPT = ROOT / "checkpoints" / "forecaster.npz"
+# card vs CPU on one set of weights: two fp32 attention layers, sums in
+# another order (the CPU tests hold the port to the reference within 1e-5)
+FORECASTER_TOL = 1e-4
+FORECASTER_BATCHES = (1, 256)       # serving (one window), and a batch of windows
+# one learn_grid cell under prewarm_lstm, its horizon cut from 600 s: the
+# whole cell took 53 s on the card (an eager LSTM of ~8 steps an arrival
+# and 40 Adam steps every 32 arrivals of a function, all host-bound)
+LSTM_HORIZON_S = 300.0
+
+
+def forecaster_flash(torch, dev):
+    """The flash kernel at the forecaster's shape (fp32, (B, 16, 4, 8), causal,
+    q_pos = kv_pos = arange(16)) against its plain version; kernel, plain and
+    SDPA timed by graph replay."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kf
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for b in FORECASTER_BATCHES:
+        q, k, v = (torch.randn((b, 16, 4, 8), generator=gen, device=dev) for _ in range(3))
+        pos = torch.arange(16, device=dev, dtype=torch.int32)
+        got = kf.flash_attention_hopper(q, k, v, q_pos=pos, kv_pos=pos)
+        want = kf.flash_attention_plain(q, k, v, q_pos=pos, kv_pos=pos)
+        torch.cuda.synchronize()
+        err, ok = _close(got, want, KERNEL_TOL["float32"])
+        print(f"kernel flash_attention float32 forecaster 4/4 D=8 B={b} S=16 causal: "
+              f"max_abs_err={err:.3e} tol={KERNEL_TOL['float32']} {'ok' if ok else 'FAIL'}")
+        if not ok or not torch.isfinite(got).all():
+            _fail(f"flash_attention at the forecaster shape (B {b}) disagrees with its plain "
+                  f"version")
+        pairs = 16 * 17 // 2
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        t = _attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, q_pos=pos, kv_pos=pos),
+                        lambda: kf.flash_attention_plain(q, k, v, q_pos=pos, kv_pos=pos),
+                        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        t.update(max_abs_err=err, bound=_bound(4.0 * pairs * 4 * 8 * b,
+                                              _nbytes(q, k, v, got, pos, pos), "float32",
+                                              exps=pairs * 4 * b))
+        print(f"time flash_attention fp32 (forecaster, B {b}, 4/4 heads, D 8, S 16), device "
+              f"(graph replay): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
+              f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms ({t['bound'][1]}); "
+              f"kernel launch by launch (host included) {t['launch_ms']:.4f} ms")
+        out[b] = t
+    return out
+
+
+def _forecaster_windows(n=64):
+    """``n`` feature windows of a seeded cron trace, every history length."""
+    import numpy as np
+    from repro_torch.core.workload import cron_spikes
+    from repro_torch.learn.features import FeatureConfig, encode_window
+
+    feat = FeatureConfig()
+    tr = cron_spikes(18_000.0, num_functions=4, base_gap_s=240.0, spike_gap_s=75.0,
+                     spike_period_s=7200.0, jitter=0.05, seed=11)
+    xs = []
+    for fn in tr.functions:
+        times = np.asarray(tr.times_for(fn))
+        gaps, ends = np.diff(times), times[1:]
+        xs += [encode_window(gaps[:j], ends[:j], feat) for j in range(1, len(gaps) + 1)]
+    idx = np.random.default_rng(0).choice(len(xs), size=n, replace=False)
+    return np.stack([xs[i] for i in idx])
+
+
+def forecaster_phase(torch, dev):
+    """The committed checkpoint read without JAX; apply_forecaster card vs
+    CPU; the predictor's flash launches and ms per prediction; then the
+    learn scenario under prewarm_transformer and a prewarm_lstm cell, each
+    on the card and on the CPU.  Returns the flash launches of the
+    forecaster's main path (the learn run)."""
+    import numpy as np
+    from repro_torch.core.metrics import format_summary
+    from repro_torch.core.predictors.transformer import TransformerPredictor
+    from repro_torch.experiments import registry, runner
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.learn.forecaster import apply_forecaster, load_forecaster
+    from repro_torch.training import checkpoint
+
+    leaves, extra = checkpoint.read_reference(str(FORECASTER_CKPT))
+    print(f"forecaster checkpoint {FORECASTER_CKPT.relative_to(ROOT)}: {len(leaves)} leaves, "
+          f"{sum(a.size for a in leaves)} parameters, extra model {extra['model']}, "
+          f"jax loaded: {'jax' in sys.modules}")
+    if "jax" in sys.modules:
+        _fail("reading the forecaster checkpoint loaded jax")
+    card, cfg, feat, _ = load_forecaster(str(FORECASTER_CKPT), device=dev)
+    host, _, _, _ = load_forecaster(str(FORECASTER_CKPT), device="cpu")
+    x = _forecaster_windows()
+    with torch.no_grad():
+        got = apply_forecaster(card, torch.from_numpy(x).to(dev), cfg).cpu()
+        want = apply_forecaster(host, torch.from_numpy(x), cfg)
+    err, ok = _close(got, want, FORECASTER_TOL)
+    print(f"forecaster apply_forecaster on {len(x)} windows, card vs CPU: max |err| "
+          f"{err:.3e} on (q05, q50, q95) tol={FORECASTER_TOL} {'ok' if ok else 'FAIL'}")
+    if not ok or got.shape != (len(x), 3) or not (got[:, 1:] >= got[:, :-1]).all():
+        _fail("apply_forecaster on the card disagrees with the CPU or is unordered")
+
+    pred = TransformerPredictor(str(FORECASTER_CKPT), device=dev)
+    pred.observe(0.0)
+    gaps = np.random.default_rng(3).uniform(60.0, 300.0, 40)
+    times = np.cumsum(gaps)
+    per_pred = []
+    for t in times[:8]:
+        pred.observe(float(t))
+        before = kf.launches
+        pred.window()
+        pred.predict_next()
+        per_pred.append(kf.launches - before)
+    print(f"forecaster predictions: flash launches per prediction {per_pred} (expected 2: "
+          f"one a layer; predict_next reads the cached window's forward)")
+    if set(per_pred) != {2}:
+        _fail(f"forecaster: {per_pred} flash launches per prediction, not 2")
+    t = float(times[8])
+
+    def predict():
+        nonlocal t
+        t += 120.0
+        pred.observe(t)
+        return pred.predict_next()
+
+    n_dev = _device_launches(torch, predict)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        predict()
+    ms = (time.perf_counter() - t0) / 50 * 1e3
+    print(f"forecaster prediction on the card: {ms:.3f} ms each (encode + (1, 16, 10) forward "
+          f"+ host copy), {n_dev} device launches each (profiler), 2 of them flash")
+
+    sc = registry.get("learn")
+    kf.launches = 0                                   # the forecaster's main path starts here
+    t0 = time.perf_counter()
+    led = runner.run(sc, "sim", device=dev)
+    wall = time.perf_counter() - t0
+    launches = kf.launches                            # read just after it
+    s = led.summary()
+    print(f"{format_summary('learn[sim] ' + sc.policy + ' card', s)}")
+    print(f"learn[sim] on the card: {wall:.2f} s wall, {launches} flash launches "
+          f"({launches // 2} predictions)")
+    t0 = time.perf_counter()
+    s_host = runner.run(sc, "sim", device="cpu").summary()
+    print(f"learn[sim] on the CPU: {time.perf_counter() - t0:.2f} s wall; requests "
+          f"{s_host['requests']} / {s['requests']}, cold rate {s_host['cold_start_frequency']:.6f} "
+          f"/ {s['cold_start_frequency']:.6f} (CPU / card)")
+    if launches == 0 or s["requests"] != s_host["requests"] or s["requests"] == 0:
+        _fail("learn under prewarm_transformer: no flash launch, or requests differ card / CPU")
+
+    cell = registry.get_sweep("learn_grid").scenarios()[0].with_overrides(
+        {"policy": "prewarm_lstm", "workload.params.horizon": LSTM_HORIZON_S})
+    t0 = time.perf_counter()
+    s_lstm = runner.run(cell, "sim", device=dev).summary()
+    wall = time.perf_counter() - t0
+    print(f"{cell.name}[sim] prewarm_lstm on the card ({cell.workload.params}): requests "
+          f"{s_lstm['requests']}, cold rate {s_lstm['cold_start_frequency']:.6f}, idle "
+          f"{s_lstm['idle_gb_s']:.2f} GB-s, in {wall:.2f} s wall")
+    if s_lstm["requests"] == 0:
+        _fail("prewarm_lstm served no request")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1226,6 +1630,7 @@ def main() -> int:
     from repro_torch.config import get_config
 
     timed = kernel_phase(torch, dev)
+    fc_flash = forecaster_flash(torch, dev)
     timed["ssm_scan"] = ssm_kernel_phase(torch, dev)
     model_phase(torch, dev, dataclasses.replace(get_config(ARCH), dtype="float32",
                                                 param_dtype="float32"), f"{ARCH} fp32")
@@ -1242,20 +1647,36 @@ def main() -> int:
     facade_phase(torch)
     launcher_phase()
     drivers_phase()
+    gym_kernel_phase(torch, dev)
+    gym_launches, gym_timed = gym_phase(torch, dev)
+    fc_launches = forecaster_phase(torch, dev)
+    # a kernel on several main paths: each path's launches (counts set to 0
+    # just before it, read just after) and its numbers at that path's shape
+    paths = {"flash_attention": [("engine", launches["flash_attention"],
+                                  timed["flash_attention"]),
+                                 ("forecaster", fc_launches, fc_flash[1])],
+             "cluster_step": [("sweep", launches["cluster_step"], timed["cluster_step"]),
+                              ("gym", gym_launches, gym_timed)]}
 
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
                 "decode_attention": "src/repro/kernels/decode_attention.py:57",
                 "cluster_step": "src/repro/kernels/cluster_step.py:237",
                 "ssm_scan": "src/repro/kernels/ssm_scan.py:62"}
+    def numbers(t):
+        return {"max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"]}
+
     kernels = []
     for name, t in timed.items():
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            "library_ms": t["library_ms"]})
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                 "replaces": replaces[name], "launches": launches[name], **numbers(t)}
+        if name in paths:
+            entry["launches"] = sum(n for _, n, _ in paths[name])
+            entry["paths"] = [{"path": p, "launches": n, **numbers(pt)}
+                              for p, n, pt in paths[name]]
+        kernels.append(entry)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -276,17 +276,20 @@ class BatchTables:
 
 def build_tables(scenarios: Sequence, *, dt: float = DEFAULT_DT,
                  cost_model=None,
-                 trace_fn: Optional[Callable] = None) -> BatchTables:
+                 trace_fn: Optional[Callable] = None,
+                 device="cuda") -> BatchTables:
     """Mirror every scenario into the batch array-state (validating batch
     support per cell).  ``trace_fn`` overrides trace construction (the
-    runner passes its cached ``build_trace``)."""
+    runner passes its cached ``build_trace``); ``device`` is where a
+    suite's learned predictor runs while its schedule is frozen
+    (``tiered_transformer``)."""
     from repro_torch.kernels import ref as R
 
     if trace_fn is None:
         trace_fn = lambda sc: sc.trace()      # noqa: E731
     cells = []
     for sc in scenarios:
-        suite = sc.suite()
+        suite = sc.suite(device)
         cm = cost_model if cost_model is not None else sc.cost_model()
         trace = trace_fn(sc)
         speed = _per_worker(sc.cluster.worker_speed,
@@ -522,7 +525,7 @@ def simulate_batch(scenarios: Sequence, *, dt: float = DEFAULT_DT,
                 f"scenario {getattr(sc, 'name', sc)!r} has a topology; "
                 "the batch driver models one flat cluster per cell — "
                 "run topology scenarios under driver='sim' or 'fleet'")
-    tables = build_tables(scenarios, dt=dt, cost_model=cost_model,
+    tables = build_tables(scenarios, dt=dt, cost_model=cost_model, device=device,
                           trace_fn=trace_fn)
     nw, fs, agg = run_tables(tables, kernel=kernel, device=device)
     return ledgers_from_agg(tables, nw, fs, agg)
@@ -576,7 +579,7 @@ def spot_check(scenarios: Sequence, *, dt: float = DEFAULT_DT,
     for sc, led in zip(scenarios, batch):
         cm = cost_model if cost_model is not None else sc.cost_model()
         trace = trace_fn(sc) if trace_fn is not None else sc.trace()
-        sim = simulate(trace, sc.suite(), cost_model=cm,
+        sim = simulate(trace, sc.suite(device), cost_model=cm,
                        cfg=sc.sim_config()).summary()
         bs = led.summary()
         rows.append(SpotCheckRow(

@@ -1,7 +1,10 @@
 """Policy catalog: named PolicySuites covering the paper's taxonomy.
 
 ``suite(name)`` returns a fresh PolicySuite; ``CATALOG`` lists everything
-(benchmarks iterate it for the Table-5 comparison).
+(benchmarks iterate it for the Table-5 comparison).  ``device`` is where
+the learned predictors of ``prewarm_lstm``, ``prewarm_transformer`` and
+``tiered_transformer`` run ("cuda" unless the caller asks for "cpu"; they
+raise without a card); every other suite takes no device.
 """
 from __future__ import annotations
 
@@ -19,21 +22,30 @@ from repro_torch.core.policies.prewarm import (HybridPrewarm, PeriodicPing,
 from repro_torch.core.policies.scheduling import CASPlacement, ENSUREScaling
 
 
-def suite(name: str, **kw) -> PolicySuite:
-    return _FACTORIES[name](**kw)
+def suite(name: str, *, device="cuda", **kw) -> PolicySuite:
+    return _FACTORIES[name](device=device, **kw)
+
+
+class _OnDevice:
+    """A suite field built on the suite's device (a learned predictor's)."""
+
+    def __init__(self, fn):
+        self.fn = fn
 
 
 def _mk(name, **fields):
-    def factory(**kw):
-        f = {k: (v() if callable(v) else v) for k, v in fields.items()}
+    def factory(*, device="cuda", **kw):
+        f = {k: (v.fn(device=device) if isinstance(v, _OnDevice)
+                 else v() if callable(v) else v)
+             for k, v in fields.items()}
         f.update(kw)
         return PolicySuite(name=name, **f)
     return factory
 
 
-def _transformer_ladder() -> PredictiveLadder:
-    from repro_torch.core.predictors import learned_not_ported
-    raise NotImplementedError(learned_not_ported("tiered_transformer"))
+def _transformer_ladder(device="cuda") -> PredictiveLadder:
+    from repro_torch.core.predictors.transformer import transformer_or_fallback
+    return PredictiveLadder(predictor_factory=transformer_or_fallback(device=device))
 
 
 _FACTORIES = {
@@ -68,10 +80,10 @@ _FACTORIES = {
                              keepalive=lambda: FixedTTL(60.0),
                              prewarm=histogram_prewarm),
     "prewarm_lstm": _mk("prewarm_lstm", keepalive=lambda: FixedTTL(60.0),
-                        prewarm=lstm_prewarm),
+                        prewarm=_OnDevice(lstm_prewarm)),
     "prewarm_transformer": _mk("prewarm_transformer",
                                keepalive=lambda: FixedTTL(60.0),
-                               prewarm=transformer_prewarm),
+                               prewarm=_OnDevice(transformer_prewarm)),
     "rl_keepalive": _mk("rl_keepalive", keepalive=RLKeepAlive),
     "cas": _mk("cas", keepalive=lambda: FixedTTL(600.0),
                placement=lambda: CASPlacement()),
@@ -88,7 +100,7 @@ _FACTORIES = {
                        startup=Startup(img_cache=True)),
     "tiered_transformer": _mk("tiered_transformer",
                               keepalive=lambda: FixedTTL(600.0),
-                              lifetime=_transformer_ladder,
+                              lifetime=_OnDevice(_transformer_ladder),
                               startup=Startup(img_cache=True)),
     # --- beyond-paper hybrids -------------------------------------------- #
     "hybrid_prewarm": _mk("hybrid_prewarm", keepalive=lambda: FixedTTL(60.0),
@@ -100,7 +112,7 @@ _FACTORIES = {
 }
 
 
-def _tiered_rl(**kw) -> PolicySuite:
+def _tiered_rl(device="cuda", **kw) -> PolicySuite:
     """RL keep-alive with the demote-not-die action space: one agent
     instance serves both the keepalive slot (pressure eviction + reuse
     feedback) and the ladder's warm-dwell decision."""
@@ -111,7 +123,7 @@ def _tiered_rl(**kw) -> PolicySuite:
     return PolicySuite(name="tiered_rl", **f)
 
 
-def _tiered_rl_learned(schedule_path=None, **kw) -> PolicySuite:
+def _tiered_rl_learned(schedule_path=None, device="cuda", **kw) -> PolicySuite:
     """RLLadder replaying a trained agent's exported per-function schedule
     (``scripts/train_predictors.py`` -> ``checkpoints/keepalive_schedule
     .json`` or ``$REPRO_KEEPALIVE_SCHEDULE``).  Fully deterministic — no

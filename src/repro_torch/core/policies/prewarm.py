@@ -83,18 +83,22 @@ def histogram_prewarm(**kw) -> PredictivePrewarm:
     return PredictivePrewarm(HistogramPredictor, name="histogram", **kw)
 
 
-def lstm_prewarm(**kw) -> PredictivePrewarm:
-    from repro_torch.core.predictors import learned_not_ported
-    raise NotImplementedError(learned_not_ported("prewarm_lstm"))
+def lstm_prewarm(device="cuda", **kw) -> PredictivePrewarm:
+    """An online-trained LSTM per function on ``device``."""
+    from functools import partial
+
+    from repro_torch.core.predictors.lstm import LSTMPredictor
+    return PredictivePrewarm(partial(LSTMPredictor, device=device), name="lstm", **kw)
 
 
-def transformer_prewarm(checkpoint=None, **kw) -> PredictivePrewarm:
-    """The trained ``repro.learn`` forecaster behind the exact same
+def transformer_prewarm(checkpoint=None, device="cuda", **kw) -> PredictivePrewarm:
+    """The trained forecaster (on ``device``) behind the exact same
     prewarm policy as ``histogram_prewarm`` — only the predictor differs,
-    which is what makes the bench_learn Pareto comparison apples-to-apples.
-    Not ported yet: raises ``NotImplementedError`` (ROADMAP A4)."""
-    from repro_torch.core.predictors import learned_not_ported
-    raise NotImplementedError(learned_not_ported("prewarm_transformer"))
+    which is what makes the Pareto comparison apples-to-apples.  Falls back
+    to the histogram when no checkpoint resolves."""
+    from repro_torch.core.predictors.transformer import transformer_or_fallback
+    return PredictivePrewarm(transformer_or_fallback(checkpoint, device=device),
+                             name="transformer", **kw)
 
 
 class HybridPrewarm(Prewarm):

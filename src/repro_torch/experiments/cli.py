@@ -12,7 +12,9 @@
 
 The engine and batch drivers run on ``--device`` (default ``cuda``: the
 engines and the cluster-step kernel on the card; without a card they raise
-unless ``--device cpu`` is given).  ``sim`` and ``fleet`` take no device.
+unless ``--device cpu`` is given).  ``sim`` and ``fleet`` put only the
+learned predictors of ``prewarm_lstm``, ``prewarm_transformer`` and
+``tiered_transformer`` on ``--device``.
 
 ``run`` with several ``--driver`` flags replays the SAME scenario through
 each driver and prints the ledger diff; ``--require-identical`` exits
@@ -34,8 +36,9 @@ from repro_torch.experiments.spec import Scenario
 from repro_torch.experiments.sweep import Sweep
 
 
-DEVICE_HELP = ("where the engine and batch drivers run (default cuda: the "
-               "card; cpu: the plain torch versions)")
+DEVICE_HELP = ("where the engine and batch drivers, and the learned "
+               "predictors under sim / fleet, run (default cuda: the card; "
+               "cpu: the plain torch versions)")
 
 
 def _parse_axis(text: str):

@@ -2,7 +2,9 @@
 
 The port of ``repro.experiments.runner``.  ``engine`` and ``batch`` run on
 ``device`` ("cuda" unless the caller asks for "cpu"); ``sim`` and ``fleet``
-are the host's event heap and virtual clock and take no device.
+are the host's event heap and virtual clock, and put only a suite's learned
+predictors (``prewarm_lstm``, ``prewarm_transformer``,
+``tiered_transformer``) on ``device``.
 
 Drivers:
   sim     discrete-event simulator (``core/simulator.py``) — cost-model
@@ -111,11 +113,11 @@ def run(scenario: Union[str, Scenario], driver: str = "sim", *,
         events.meta.setdefault("driver", driver)
     if driver == "sim":
         from repro_torch.core.simulator import simulate
-        return simulate(trace, sc.suite(), cost_model=cm,
+        return simulate(trace, sc.suite(device), cost_model=cm,
                         cfg=sc.sim_config(), events=events)
     if driver == "fleet":
         from repro_torch.fleet import replay
-        return replay(trace, sc.suite(), cost_model=cm,
+        return replay(trace, sc.suite(device), cost_model=cm,
                       cfg=sc.fleet_config(), events=events)
     return _run_engine(sc, trace, cm, events=events, device=device)
 
@@ -136,7 +138,7 @@ def _run_engine(sc: Scenario, trace, cost_model,
                             batch=es.batch, decode_steps=es.decode_steps)
         for name in trace.functions
     })
-    suite = sc.suite()
+    suite = sc.suite(device)
     if es.snapshots:
         suite.startup = dataclasses.replace(suite.startup, snapshot=True)
     if events is not None and events.wall_clock is None:

@@ -178,7 +178,8 @@ class Scenario:
     def trace(self):
         return self.workload.build(self.seed)
 
-    def suite(self):
+    def suite(self, device="cuda"):
+        """A fresh suite; ``device`` is where its learned predictors run."""
         from repro_torch.core.policies import suite as make_suite
         from repro_torch.core.policies.base import PolicySuite
         from repro_torch.core.policies.keepalive import FixedTTL
@@ -192,7 +193,7 @@ class Scenario:
                 name=self.platform,
                 keepalive=FixedTTL(platform_keep_alive(self.platform)))
         else:
-            s = make_suite(self.policy)
+            s = make_suite(self.policy, device=device)
         if self.keepalive_ttl is not None:
             s.keepalive = FixedTTL(self.keepalive_ttl)
         return s

@@ -9,6 +9,11 @@ shape (:func:`layout`): ``"warp"``, one warp a cell with the state in
 registers, for every table up to F 64, W 8, K 8 (every registered batch
 grid); ``"block"``, one block a cell with a thread a function, for wider
 tables.
+
+The RL keep-alive gym (``repro_torch.learn.gym``) runs one epoch a launch:
+``t_begin`` offsets the steps' clock (step t of the launch at
+``float32(t_begin + t) * dt``) and ``extras=True`` also returns the
+per-function ``(cold, idle GB-s)`` sums of the launch, (C, 2, F).
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ launches = 0   # kernel launches; chip_smoke.py resets and reads it
 layout_launches = {"warp": 0, "block": 0}   # the same launches by layout
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"cluster_step_fwd": (_P,) * 15 + (_I,) * 6 + (_P,)}
+_SIGNATURES = {"cluster_step_fwd": (_P,) * 16 + (_I,) * 7 + (_P,)}
 _LAYOUT_CODE = {"warp": 0, "block": 1}
 WARP_MAX = {"F": 64, "W": 8, "K": 8}   # the warp kernel's compile-time bounds
 CHUNK = 128                       # steps a stage of the warp kernel's ring holds
@@ -63,21 +68,29 @@ def layout(f: int, w: int, k: int) -> str:
 
 
 def cluster_sim_plain(nw, fs, free, arrivals, conc, fparam, promote, dwell,
-                      ntier, frac, scal):
-    """A Python loop over T of the batched torch step (``ref.cluster_step_ref``).
+                      ntier, frac, scal, *, t_begin: int = 0, extras: bool = False):
+    """A Python loop over T of the batched torch step (``ref.cluster_step_full``).
 
-    ``now`` of step t is ``float32(t) * dt`` of each cell, as in the kernel.
-    Returns ``(nw, fs, free, agg)`` with agg (C, AG_N).
+    ``now`` of step t is ``float32(t_begin + t) * dt`` of each cell, as in the
+    kernel.  Returns ``(nw, fs, free, agg)`` with agg (C, AG_N), and with
+    ``extras`` also (C, 2, F): per function, the steps' cold starts and idle
+    GB-s, each summed in time order from zero.
     """
-    c, t_steps, _ = arrivals.shape
+    c, t_steps, f = arrivals.shape
     agg = torch.zeros((c, R.AG_N), dtype=torch.float32, device=nw.device)
+    cold = torch.zeros((c, f), dtype=torch.float32, device=nw.device)
+    idle = torch.zeros_like(cold)
     dt = scal[:, R.SC_DT]
     for t in range(t_steps):
-        now = torch.tensor(float(t), dtype=torch.float32, device=nw.device) * dt
-        nw, fs, free, d = R.cluster_step_ref(
+        now = torch.tensor(float(t_begin + t), dtype=torch.float32, device=nw.device) * dt
+        nw, fs, free, d, (cold_t, idle_t) = R.cluster_step_full(
             nw, fs, free, arrivals[:, t], conc[:, t], now, fparam, promote,
             dwell, ntier, frac, scal)
         agg = agg + d
+        cold = cold + cold_t
+        idle = idle + idle_t
+    if extras:
+        return nw, fs, free, agg, torch.stack([cold, idle], dim=1)
     return nw, fs, free, agg
 
 
@@ -112,21 +125,25 @@ def _check(args):
 
 
 def cluster_sim_hopper(nw, fs, free, arrivals, conc, fparam, promote, dwell,
-                       ntier, frac, scal):
+                       ntier, frac, scal, *, t_begin: int = 0, extras: bool = False):
     """Advance every cell through all T steps; the arguments and results of
     :func:`repro.kernels.cluster_step.cluster_sim_pallas`.
 
     nw (C, F, W); fs (C, F, FS_N); free (C, W); arrivals and conc (C, T, F);
     fparam/promote (C, F, 5); dwell/ntier (C, F, K); frac (C, 5);
     scal (C, SC_N); all float32.  Returns ``(nw, fs, free, agg)`` with agg
-    (C, AG_N).  CUDA tensors go to a hand kernel (one launch, the layout
-    :func:`layout` picks), CPU tensors to the plain version.
+    (C, AG_N), and with ``extras`` also the per-function (cold, idle GB-s)
+    sums (C, 2, F); step t runs at ``float32(t_begin + t) * dt``.  CUDA
+    tensors go to a hand kernel (one launch, the layout :func:`layout`
+    picks), CPU tensors to the plain version.
     """
     global launches
     args = (nw, fs, free, arrivals, conc, fparam, promote, dwell, ntier, frac,
             scal)
+    if not 0 <= t_begin < 2 ** 24:
+        raise ValueError(f"t_begin {t_begin} is not an integer step in [0, 2^24)")
     if nw.device.type == "cpu":
-        return cluster_sim_plain(*args)
+        return cluster_sim_plain(*args, t_begin=t_begin, extras=extras)
     if nw.device.type != "cuda":
         raise ValueError(f"the cluster step runs on cuda or cpu, not {nw.device}")
     kind = _check(args)
@@ -135,11 +152,15 @@ def cluster_sim_hopper(nw, fs, free, arrivals, conc, fparam, promote, dwell,
     t, k = arrivals.shape[1], dwell.shape[2]
     nw_out, fs_out, free_out = (torch.empty_like(x) for x in (nw, fs, free))
     agg = torch.empty((c, R.AG_N), dtype=torch.float32, device=nw.device)
+    ex = torch.empty((c, 2, f), dtype=torch.float32, device=nw.device) if extras else None
     code = _build.call(
         nw.device, lib.cluster_step_fwd, *(x.data_ptr() for x in args), nw_out.data_ptr(),
-        fs_out.data_ptr(), free_out.data_ptr(), agg.data_ptr(), c, f, w, k, t,
+        fs_out.data_ptr(), free_out.data_ptr(), agg.data_ptr(),
+        None if ex is None else ex.data_ptr(), c, f, w, k, t, int(t_begin),
         _LAYOUT_CODE[kind])
     _build.check(lib, "cluster_step", code)
     launches += 1
     layout_launches[kind] += 1
+    if extras:
+        return nw_out, fs_out, free_out, agg, ex
     return nw_out, fs_out, free_out, agg

@@ -65,6 +65,17 @@
 // function f, nw in shared memory, thread w sums over f in the same index
 // order.  repro_torch/kernels/cluster_step.py::layout picks by shape.
 //
+// The RL keep-alive gym (repro_torch/learn/gym.py) advances the grid one
+// epoch a launch: a step offset t_begin puts step t of the launch at
+// now = float(t_begin + t) * dt (integers below 2^24 are exact in fp32, so
+// this is the reference gym's (e * E + t) * dt), and an optional output of
+// per-function extras (C, 2, F) holds cold starts and idle GB-s, each summed
+// over the launch's steps in time order from zero, as the reference gym sums
+// cluster_step_full's extras.  Cold is the running AG_COLD sum of a function;
+// idle has an accumulator of its own (the per-tier sums round in another
+// order).  Kernels with and without extras are separate instantiations
+// (template flag EX), so the sweep's kernel is the same code as before.
+//
 // Both kernels are built with -fmad=false and IEEE division (no
 // --use_fast_math): the plain version rounds every product and quotient, and
 // near-integer values feed ceil / floor (Little's law, floor(free / mem),
@@ -233,7 +244,8 @@ long long warp_smem_bytes(int F, int W) {
 
 // One warp advances one cell through all T steps.  FPL functions a lane
 // (F <= 32 * FPL), WM >= W workers and KM >= K schedule edges, zero padded.
-template <int FPL, int WM, int KM>
+// EX: also write the per-function extras (cold, idle GB-s) of the launch.
+template <int FPL, int WM, int KM, bool EX>
 __global__ void __launch_bounds__(32)
 cluster_warp_kernel(const float* __restrict__ nw0, const float* __restrict__ fs0,
                     const float* __restrict__ free0, const float* __restrict__ arrivals,
@@ -242,7 +254,8 @@ cluster_warp_kernel(const float* __restrict__ nw0, const float* __restrict__ fs0
                     const float* __restrict__ ntier, const float* __restrict__ frac,
                     const float* __restrict__ scal, float* __restrict__ nw_out,
                     float* __restrict__ fs_out, float* __restrict__ free_out,
-                    float* __restrict__ agg_out, int F, int W, int K, int T) {
+                    float* __restrict__ agg_out, float* __restrict__ extras_out,
+                    int F, int W, int K, int T, int t_begin) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t bar0 = smem_u32(smem_raw);             // mbarrier of stage s at bar0 + 8 s
   float* ring = reinterpret_cast<float*>(smem_raw + 16);  // [2][arrivals, conc][CHUNK * F]
@@ -267,9 +280,13 @@ cluster_warp_kernel(const float* __restrict__ nw0, const float* __restrict__ fs0
   float mem[FPL], mem1[FPL], exec_s[FPL], exec_gb[FPL], svc[FPL], mem_gb[FPL], d0[FPL];
   float rmem[FPL], rdecay_full[FPL];   // exact_recip(mem1); the decay factor of a full step
   float pr[FPL][N_TIERS], dw[FPL][KM], nt[FPL][KM], nw[FPL][WM], n[FPL], acc[FPL][AG_N];
+  // idle GB-s summed over the launch's steps in time order (EX only): not
+  // the sum of the three per-tier sums, which round in another order
+  float idle_sum[FPL];
 #pragma unroll
   for (int j = 0; j < FPL; ++j) {
     const int f = lane + 32 * j;
+    idle_sum[j] = 0.f;
     live[j] = f < F;
     const size_t cf = static_cast<size_t>(c) * F + (live[j] ? f : 0);
     tier[j] = edge[j] = deadline[j] = queued[j] = has_snap[j] = img[j] = 0.f;
@@ -384,7 +401,7 @@ cluster_warp_kernel(const float* __restrict__ nw0, const float* __restrict__ fs0
     const float* c_s = a_s + CHUNK * F;
 
     for (int tt = 0; tt < steps; ++tt) {
-      const float now = static_cast<float>(t0 + tt) * dt;
+      const float now = static_cast<float>(t_begin + t0 + tt) * dt;
       const float dt_eff = fminf(fmaxf(horizon - now, 0.f), dt);
       float a_t[FPL];
 #pragma unroll
@@ -602,6 +619,7 @@ cluster_warp_kernel(const float* __restrict__ nw0, const float* __restrict__ fs0
           n[j] += nw[j][w];
         }
         const float idle_gb = fmaxf(n[j] * dt_eff - nonidle[j], 0.f) * mem_gb[j] * select5(fr, tier[j]);
+        if (EX) idle_sum[j] += idle_gb;
         if (tier[j] == T_WARM) acc[j][AG_IDLE_WARM] += idle_gb;
         else if (tier[j] == T_PAUSED) acc[j][AG_IDLE_PAUSED] += idle_gb;
         else if (tier[j] == T_SNAP) acc[j][AG_IDLE_SNAP] += idle_gb;
@@ -625,6 +643,10 @@ cluster_warp_kernel(const float* __restrict__ nw0, const float* __restrict__ fs0
       s[FS_IMG] = img[j];
 #pragma unroll
       for (int a = 0; a < AG_N; ++a) red[a * F + lane + 32 * j] = acc[j][a];
+      if (EX) {   // cold is the running per-function AG_COLD sum
+        extras_out[(static_cast<size_t>(c) * 2 + 0) * F + lane + 32 * j] = acc[j][AG_COLD];
+        extras_out[(static_cast<size_t>(c) * 2 + 1) * F + lane + 32 * j] = idle_sum[j];
+      }
     }
 #pragma unroll
   for (int w = 0; w < WM; ++w)
@@ -640,6 +662,8 @@ cluster_warp_kernel(const float* __restrict__ nw0, const float* __restrict__ fs0
 // The first layout, for tables beyond the warp kernel's bounds: one block a
 // cell, thread f owns function f (registers), nw[F, W] and free[W] in shared
 // memory, thread w sums over f in index order (the warp kernel's order).
+// EX as in the warp kernel.
+template <bool EX>
 __global__ void __launch_bounds__(MAX_THREADS)
 cluster_block_kernel(const float* __restrict__ nw0, const float* __restrict__ fs0,
                const float* __restrict__ free0, const float* __restrict__ arrivals,
@@ -648,7 +672,8 @@ cluster_block_kernel(const float* __restrict__ nw0, const float* __restrict__ fs
                const float* __restrict__ ntier, const float* __restrict__ frac,
                const float* __restrict__ scal, float* __restrict__ nw_out,
                float* __restrict__ fs_out, float* __restrict__ free_out,
-               float* __restrict__ agg_out, int F, int W, int K, int T) {
+               float* __restrict__ agg_out, float* __restrict__ extras_out,
+               int F, int W, int K, int T, int t_begin) {
   extern __shared__ __align__(16) float smem[];
   const int WS = W | 1;                // odd row stride
   float* nw = smem;                    // F * WS resident counts
@@ -708,6 +733,7 @@ cluster_block_kernel(const float* __restrict__ nw0, const float* __restrict__ fs
   float acc[AG_N];
 #pragma unroll
   for (int a = 0; a < AG_N; ++a) acc[a] = 0.f;
+  float idle_sum = 0.f;                // EX: idle GB-s in time order
   __syncthreads();
 
   const float* arr_c = arrivals + static_cast<size_t>(c) * T * F;
@@ -715,7 +741,7 @@ cluster_block_kernel(const float* __restrict__ nw0, const float* __restrict__ fs
   const float mem1 = fmaxf(mem, 1.f);
 
   for (int t = 0; t < T; ++t) {
-    const float now = static_cast<float>(t) * dt;
+    const float now = static_cast<float>(t_begin + t) * dt;
     const float dt_eff = fminf(fmaxf(horizon - now, 0.f), dt);
     const float a_t = is_f ? arr_c[static_cast<size_t>(t) * F + tid] : 0.f;
     if (!(dt_eff > 0.f)) {             // past the horizon: arrivals only queue
@@ -866,6 +892,7 @@ cluster_block_kernel(const float* __restrict__ nw0, const float* __restrict__ fs
         n_new += my[w];
       }
       const float idle_gb = fmaxf(n_new * dt_eff - nonidle, 0.f) * mem_gb * select5(fr, tier);
+      if (EX) idle_sum += idle_gb;
       if (tier == T_WARM) acc[AG_IDLE_WARM] += idle_gb;
       else if (tier == T_PAUSED) acc[AG_IDLE_PAUSED] += idle_gb;
       else if (tier == T_SNAP) acc[AG_IDLE_SNAP] += idle_gb;
@@ -884,6 +911,10 @@ cluster_block_kernel(const float* __restrict__ nw0, const float* __restrict__ fs
     s[FS_IMG] = img;
 #pragma unroll
     for (int a = 0; a < AG_N; ++a) red[a * F + tid] = acc[a];
+    if (EX) {
+      extras_out[(static_cast<size_t>(c) * 2 + 0) * F + tid] = acc[AG_COLD];
+      extras_out[(static_cast<size_t>(c) * 2 + 1) * F + tid] = idle_sum;
+    }
   }
   if (is_w) free_out[static_cast<size_t>(c) * W + tid] = free_s[tid];
   __syncthreads();
@@ -903,26 +934,36 @@ long long block_smem_bytes(int F, int W) {
 
 struct Args {
   const float *nw, *fs, *free_mb, *arrivals, *conc, *fparam, *promote, *dwell, *ntier, *frac, *scal;
-  float *nw_out, *fs_out, *free_out, *agg_out;
+  float *nw_out, *fs_out, *free_out, *agg_out, *extras_out;
+  int t_begin;
 };
 
-template <int FPL, int WM, int KM>
+template <int FPL, int WM, int KM, bool EX>
 int launch_warp(const Args& a, int C, int F, int W, int K, int T, cudaStream_t stream) {
   const long long smem = warp_smem_bytes(F, W);
-  cudaError_t err = cudaFuncSetAttribute(cluster_warp_kernel<FPL, WM, KM>,
+  cudaError_t err = cudaFuncSetAttribute(cluster_warp_kernel<FPL, WM, KM, EX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cluster_warp_kernel<FPL, WM, KM><<<C, 32, static_cast<size_t>(smem), stream>>>(
+  cluster_warp_kernel<FPL, WM, KM, EX><<<C, 32, static_cast<size_t>(smem), stream>>>(
       a.nw, a.fs, a.free_mb, a.arrivals, a.conc, a.fparam, a.promote, a.dwell, a.ntier,
-      a.frac, a.scal, a.nw_out, a.fs_out, a.free_out, a.agg_out, F, W, K, T);
+      a.frac, a.scal, a.nw_out, a.fs_out, a.free_out, a.agg_out, a.extras_out, F, W, K, T,
+      a.t_begin);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the extras-free kernels (the sweep's) are separate instantiations, so the
+// extras cost the sweep nothing
+template <int FPL, int WM, int KM>
+int launch_warp_x(const Args& a, int C, int F, int W, int K, int T, cudaStream_t stream) {
+  return a.extras_out ? launch_warp<FPL, WM, KM, true>(a, C, F, W, K, T, stream)
+                      : launch_warp<FPL, WM, KM, false>(a, C, F, W, K, T, stream);
 }
 
 template <int FPL, int WM>
 int launch_warp_k(const Args& a, int C, int F, int W, int K, int T, cudaStream_t stream) {
-  return K <= 4 ? launch_warp<FPL, WM, 4>(a, C, F, W, K, T, stream)
-                : launch_warp<FPL, WM, 8>(a, C, F, W, K, T, stream);
+  return K <= 4 ? launch_warp_x<FPL, WM, 4>(a, C, F, W, K, T, stream)
+                : launch_warp_x<FPL, WM, 8>(a, C, F, W, K, T, stream);
 }
 
 template <int FPL>
@@ -931,6 +972,7 @@ int launch_warp_w(const Args& a, int C, int F, int W, int K, int T, cudaStream_t
                 : launch_warp_k<FPL, 8>(a, C, F, W, K, T, stream);
 }
 
+template <bool EX>
 int launch_block(const Args& a, int C, int F, int W, int K, int T, cudaStream_t stream) {
   int threads = F > W ? F : W;
   threads = threads > AG_N ? threads : AG_N;
@@ -938,11 +980,13 @@ int launch_block(const Args& a, int C, int F, int W, int K, int T, cudaStream_t 
   if (threads > MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = block_smem_bytes(F, W);
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      cluster_block_kernel<EX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cluster_block_kernel<<<C, threads, static_cast<size_t>(smem), stream>>>(
+  cluster_block_kernel<EX><<<C, threads, static_cast<size_t>(smem), stream>>>(
       a.nw, a.fs, a.free_mb, a.arrivals, a.conc, a.fparam, a.promote, a.dwell, a.ntier,
-      a.frac, a.scal, a.nw_out, a.fs_out, a.free_out, a.agg_out, F, W, K, T);
+      a.frac, a.scal, a.nw_out, a.fs_out, a.free_out, a.agg_out, a.extras_out, F, W, K, T,
+      a.t_begin);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -953,16 +997,20 @@ extern "C" {
 // Returns the CUDA error of the launch (0 on success).  All arrays float32,
 // contiguous: nw (C,F,W), fs (C,F,6), free (C,W), arrivals / conc (C,T,F),
 // fparam / promote (C,F,5), dwell / ntier (C,F,K), frac (C,5), scal (C,5);
-// outputs nw_out (C,F,W), fs_out (C,F,6), free_out (C,W), agg_out (C,12).
-// layout 0: the warp kernel (F <= 64, W <= 8, K <= 8); 1: the block kernel
-// (repro_torch/kernels/cluster_step.py::layout picks).
+// outputs nw_out (C,F,W), fs_out (C,F,6), free_out (C,W), agg_out (C,12) and,
+// unless extras_out is null, extras_out (C,2,F): per function, cold starts
+// and idle GB-s summed over the launch's steps.  Step t of the launch runs at
+// now = float(t_begin + t) * dt.  layout 0: the warp kernel (F <= 64, W <= 8,
+// K <= 8); 1: the block kernel (repro_torch/kernels/cluster_step.py::layout
+// picks).
 int cluster_step_fwd(const void* nw, const void* fs, const void* free_mb,
                      const void* arrivals, const void* conc, const void* fparam,
                      const void* promote, const void* dwell, const void* ntier,
                      const void* frac, const void* scal, void* nw_out,
-                     void* fs_out, void* free_out, void* agg_out, int C, int F,
-                     int W, int K, int T, int layout, void* stream) {
-  if (C < 1 || F < 1 || W < 1 || K < 1 || T < 0)
+                     void* fs_out, void* free_out, void* agg_out, void* extras_out,
+                     int C, int F, int W, int K, int T, int t_begin, int layout,
+                     void* stream) {
+  if (C < 1 || F < 1 || W < 1 || K < 1 || T < 0 || t_begin < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(nw), static_cast<const float*>(fs),
                static_cast<const float*>(free_mb), static_cast<const float*>(arrivals),
@@ -971,9 +1019,11 @@ int cluster_step_fwd(const void* nw, const void* fs, const void* free_mb,
                static_cast<const float*>(ntier), static_cast<const float*>(frac),
                static_cast<const float*>(scal), static_cast<float*>(nw_out),
                static_cast<float*>(fs_out), static_cast<float*>(free_out),
-               static_cast<float*>(agg_out)};
+               static_cast<float*>(agg_out), static_cast<float*>(extras_out), t_begin};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (layout == 1) return launch_block(a, C, F, W, K, T, st);
+  if (layout == 1)
+    return extras_out ? launch_block<true>(a, C, F, W, K, T, st)
+                      : launch_block<false>(a, C, F, W, K, T, st);
   if (layout != 0 || F > WARP_MAX_F || W > WARP_MAX_W || K > WARP_MAX_K)
     return static_cast<int>(cudaErrorInvalidValue);
   return F <= 32 ? launch_warp_w<1>(a, C, F, W, K, T, st)

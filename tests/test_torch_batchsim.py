@@ -258,7 +258,22 @@ def test_sweep_cli_batch_matches_reference(tmp_path):
 def test_unported_drivers_and_suites_raise():
     with pytest.raises(ValueError, match="topology"):
         trun.run("calib/topo_basic", "batch", device="cpu")
+    # the learned suites are ported: the batch driver refuses the prewarm
+    # ones, as the reference's does (online predictors, no static
+    # schedule), and freezes tiered_transformer's ladder into a schedule
+    # with the forecaster on the asked device (the reference cannot load
+    # its committed checkpoint under jax 0.9: ROADMAP C)
     from repro_torch.core.policies import suite
     for name in ("prewarm_lstm", "prewarm_transformer", "tiered_transformer"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            suite(name)
+        assert suite(name, device="cpu").name == name
+    for name in ("prewarm_lstm", "prewarm_transformer"):
+        sc = rreg.get("learn").with_overrides({"policy": name})
+        with pytest.raises(rbatch.BatchUnsupportedPolicy) as want:
+            rbatch.simulate_batch([sc])
+        with pytest.raises(tbatch.BatchUnsupportedPolicy) as got:
+            tbatch.simulate_batch([_port(sc)], device="cpu")
+        assert str(got.value) == str(want.value)
+    sc = _port(rreg.get("calib/tiered_spes").with_overrides(
+        {"policy": "tiered_transformer"}))
+    led, = tbatch.simulate_batch([sc], device="cpu")
+    assert led.summary()["requests"] > 0

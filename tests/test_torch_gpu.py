@@ -289,6 +289,91 @@ def test_cluster_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tcluster.cluster_sim_hopper(*big)
 
 
+# the RL keep-alive gym's launch: a step offset and the per-function extras,
+# in both layouts (warp: the fixtures; block: past the warp kernel's bounds)
+CLUSTER_EXTRAS_CASES = [
+    dict(seed=0, t_begin=5), dict(seed=1, t_begin=200),
+    dict(seed=21, C=4, F=12, W=4, K=4, T=60, worker_mb=16384.0, t_begin=1140),
+    dict(seed=22, C=2, F=70, W=4, T=60, worker_mb=131072.0, t_begin=60),
+    dict(seed=23, C=2, F=20, W=9, T=60, worker_mb=32768.0, t_begin=7),
+]
+
+
+@pytest.mark.parametrize("case", CLUSTER_EXTRAS_CASES, ids=lambda c: f"seed{c['seed']}")
+def test_cluster_extras_kernel_matches_plain_on_card(cuda, case):
+    kw = dict(case)
+    seed, t_begin = kw.pop("seed"), kw.pop("t_begin")
+    cs = _chip_smoke()
+    tables = cs.kernel_order(cs.random_tables(np.random.default_rng(seed), **kw))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in tables]
+    c, f, w = args[0].shape
+    kind = tcluster.layout(f, w, args[7].shape[2])
+    before = dict(tcluster.layout_launches)
+    got = tcluster.cluster_sim_hopper(*args, t_begin=t_begin, extras=True)
+    assert tcluster.layout_launches[kind] == before[kind] + 1
+    want = tcluster.cluster_sim_plain(*args, t_begin=t_begin, extras=True)
+    assert tuple(got[4].shape) == (c, 2, f)
+    for name, g, wt in zip(("nw", "fs", "free", "agg", "extras"), got, want):
+        out = g.cpu().numpy()
+        assert np.isfinite(out).all(), name
+        np.testing.assert_allclose(out, wt.cpu().numpy(), rtol=1e-4, atol=1e-2,
+                                   err_msg=name)
+    # the extras-free launch gives the same state and aggregates
+    four = tcluster.cluster_sim_hopper(*args, t_begin=t_begin)
+    for a, b in zip(four, got):
+        assert torch.equal(a, b)
+
+
+def test_gym_baseline_is_one_launch_an_epoch_on_card(cuda):
+    from repro_torch.learn.gym import BatchSimGym, training_scenarios
+
+    kw = dict(seeds=(1, 2), horizon=120.0)
+    gym = BatchSimGym(training_scenarios(**kw), device="cuda")
+    before = tcluster.launches
+    got = gym.baseline_rewards()
+    assert tcluster.launches - before == len(gym.actions) * gym.num_epochs
+    want = BatchSimGym(training_scenarios(**kw), device="cpu").baseline_rewards()
+    for a in want:
+        np.testing.assert_allclose(got[a]["reward"], want[a]["reward"], rtol=1e-4)
+        np.testing.assert_allclose(got[a]["cold_starts"], want[a]["cold_starts"], atol=1e-2)
+
+
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_flash_kernel_at_the_forecaster_shape(cuda, b):
+    """The gap forecaster's attention: fp32, (B, 16, 4, 8), causal, q_pos =
+    kv_pos = arange(16)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((b, 16, 4, 8), generator=g, device=cuda) for _ in range(3))
+    pos = torch.arange(16, device=cuda, dtype=torch.int32)
+    before = tflash.launches
+    got = tflash.flash_attention_hopper(q, k, v, q_pos=pos, kv_pos=pos)
+    assert tflash.launches == before + 1
+    want = tflash.flash_attention_plain(q, k, v, q_pos=pos, kv_pos=pos)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=3e-5, rtol=3e-5)
+
+
+def test_forecaster_prediction_is_two_flash_launches_on_card(cuda):
+    from pathlib import Path
+
+    from repro_torch.core.predictors.transformer import TransformerPredictor
+
+    ckpt = str(Path(__file__).resolve().parents[1] / "checkpoints" / "forecaster.npz")
+    card = TransformerPredictor(ckpt, device="cuda")
+    host = TransformerPredictor(ckpt, device="cpu")
+    card.observe(0.0)
+    host.observe(0.0)
+    assert card.window() is None                  # no gap yet: no forward
+    for t in (240.0, 480.0, 555.0, 795.0):
+        card.observe(t)
+        host.observe(t)
+        before = tflash.launches
+        got = card.window()
+        assert tflash.launches - before == 2
+        card.predict_next()                       # cached until the next arrival
+        assert tflash.launches - before == 2
+        np.testing.assert_allclose(got, host.window(), rtol=1e-5)
+
+
 def _ssm_inputs(bt, t, din, n, dtype, device, seed=0):
     """u, B, C in ``dtype``; delta, A, D, h0 in fp32 (the Mamba mixer's types)."""
     rng = np.random.default_rng(seed)

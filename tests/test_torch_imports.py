@@ -64,7 +64,15 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.analyze.reader", "repro_torch.analyze.stats",
                  "repro_torch.analyze.plots", "repro_torch.analyze.cli",
                  "repro_torch.analyze.__main__", "repro_torch.launch",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve",
+                 # the learned predictors and the RL keep-alive gym's slice
+                 "repro_torch.training", "repro_torch.training.optimizer",
+                 "repro_torch.training.checkpoint", "repro_torch.learn",
+                 "repro_torch.learn.features", "repro_torch.learn.dataset",
+                 "repro_torch.learn.gym", "repro_torch.learn.agent",
+                 "repro_torch.learn.forecaster",
+                 "repro_torch.core.predictors.transformer",
+                 "repro_torch.core.predictors.lstm"):
         assert name in got["modules"]
 
 
