@@ -81,9 +81,27 @@ Phases, each fatal on failure:
                and the ms of a prediction; the learn scenario under
                prewarm_transformer (sim driver, predictors on the card; the
                flash launches counted) against the same run on the CPU, and
-               one learn_grid cell under prewarm_lstm (horizon cut to 300 s).
+               one learn_grid cell under prewarm_lstm (horizon cut to 300 s);
+ 15. encdec  — full-width whisper-large-v3 (32 + 32 layers, 1500 frames,
+               max_seq 448): in fp32, a 120-token prefill on random frames
+               and 4 decode steps, kernel path vs plain path as in phase 4;
+               the bf16 InferenceEngine with frames as in phase 5 (flash 96 a
+               prefill, decode 64 a step; every token after the first is 0,
+               the reference's NaN positions past max_seq; restore < cold
+               start; one traced request); a ServerlessRouter COLD then warm
+               request with extras={"frames": ...};
+ 16. vision  — full-width internvl2-1b (14/2 heads: G 7): fp32 kernel path
+               vs plain path with 256 image embeddings, and the bf16 engine
+               with image_embeds (flash 24 a prefill, decode 24 a step);
+ 17. chain   — fuse_chain over full-width granite-3-2b -> h2o-danube-3-4b
+               (bf16, max_seq 512, 16 steps a stage) as one CUDA graph: its
+               tokens against the stages run eagerly one after another, the
+               capture's seconds, a replay's ms and the eager chain's.
 The kernel phase also holds the flash kernel to its plain version at the
-forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it.
+forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it, and
+both attention kernels at whisper's (encoder 1500 x 1500 non-causal, cross
+448 x 1500, decoder 448; decode against the 1500-row cross cache and the
+448-row self cache) and internvl2's (G 7) shapes, bf16 timed.
 The granite engine phase also restores from the snapshot file alone (a store
 with no pinned host copy, as a new process has) beside the pinned restore,
 and holds the pinned restore under the cold start (C2).
@@ -206,22 +224,40 @@ def _nbytes(*tensors) -> int:
 
 # attention head shapes (Hq, Hkv, D): granite-3-2b's is the main path's (the
 # kernels line); the one-period Jamba's is timed too; danube's (D 120) and
-# starcoder2's (G * D = 12 x 128) are the shapes the first kernels refused
+# starcoder2's (G * D = 12 x 128) are the shapes the first kernels refused;
+# whisper-large-v3's (20/20, D 64) and internvl2-1b's (14/2: G 7) are the
+# encoder-decoder and vision paths'
 ATTN_SHAPES = {"granite": (32, 8, 64), "jamba": (32, 8, 128),
-               "danube": (32, 8, 120), "starcoder2": (48, 4, 128)}
-FLASH_CASES = [  # (shape, name, Sq, Skv, window); prefill is timed where listed in TIMED
-    ("granite", "prefill", 512, 512, None), ("granite", "window128", 512, 512, 128),
-    ("granite", "ragged", 24, 24, None), ("granite", "ragged_suffix", 24, 88, 16),
-    ("jamba", "prefill", 512, 512, None), ("jamba", "ragged_suffix", 100, 300, 64),
-    ("danube", "prefill", 512, 512, None), ("danube", "ragged_window", 77, 77, 32),
-    ("starcoder2", "prefill", 512, 512, None), ("starcoder2", "ragged_suffix", 40, 130, 50)]
+               "danube": (32, 8, 120), "starcoder2": (48, 4, 128),
+               "whisper": (20, 20, 64), "internvl2": (14, 2, 64)}
+FLASH_CASES = [  # (shape, name, Sq, Skv, window, causal)
+    ("granite", "prefill", 512, 512, None, True), ("granite", "window128", 512, 512, 128, True),
+    ("granite", "ragged", 24, 24, None, True), ("granite", "ragged_suffix", 24, 88, 16, True),
+    ("jamba", "prefill", 512, 512, None, True), ("jamba", "ragged_suffix", 100, 300, 64, True),
+    ("danube", "prefill", 512, 512, None, True), ("danube", "ragged_window", 77, 77, 32, True),
+    ("starcoder2", "prefill", 512, 512, None, True),
+    ("starcoder2", "ragged_suffix", 40, 130, 50, True),
+    # whisper: the 1500-frame encoder and the cross-attention end in a 28-row
+    # tile (1500 = 23 x 64 + 28); the decoder's self-attention at max_seq 448
+    ("whisper", "encoder", 1500, 1500, None, False), ("whisper", "cross", 448, 1500, None, False),
+    ("whisper", "decoder", 448, 448, None, True), ("internvl2", "prefill", 512, 512, None, True)]
 DECODE_CASES = [  # (shape, name, S, mask: None = all valid, else (pos, window))
     ("granite", "decode", 512, None), ("granite", "window128", 512, (300, 128)),
     ("granite", "ragged", 24, (20, None)),
     ("jamba", "decode", 512, None), ("jamba", "window128", 500, (300, 128)),
     ("danube", "decode", 512, None), ("danube", "window128", 512, (300, 128)),
-    ("starcoder2", "decode", 512, None), ("starcoder2", "ragged", 77, (60, None))]
-TIMED = ("granite", "jamba")
+    ("starcoder2", "decode", 512, None), ("starcoder2", "ragged", 77, (60, None)),
+    # whisper's cross cache (1500 = 46 x 32 + 28 rows, all valid) and its self
+    # cache past max_seq (all valid); internvl2's G 7
+    ("whisper", "cross", 1500, None), ("whisper", "self", 448, None),
+    ("internvl2", "decode", 512, None), ("internvl2", "ragged", 512, (300, None))]
+# the bf16 cases timed: every main path's shape
+TIMED = {("flash_attention", "granite", "prefill"), ("flash_attention", "jamba", "prefill"),
+         ("flash_attention", "whisper", "encoder"), ("flash_attention", "whisper", "cross"),
+         ("flash_attention", "whisper", "decoder"), ("flash_attention", "internvl2", "prefill"),
+         ("decode_attention", "granite", "decode"), ("decode_attention", "jamba", "decode"),
+         ("decode_attention", "whisper", "cross"), ("decode_attention", "whisper", "self"),
+         ("decode_attention", "internvl2", "decode")}
 
 
 def _sass_counts():
@@ -250,41 +286,43 @@ def kernel_phase(torch, dev):
     timed = {}
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        for shape, name, sq, skv, window in FLASH_CASES:
+        for shape, name, sq, skv, window, causal in FLASH_CASES:
             hq, hkv, d = ATTN_SHAPES[shape]
             q = torch.randn((1, sq, hq, d), generator=gen, device=dev).to(tdt)
             k = torch.randn((1, skv, hkv, d), generator=gen, device=dev).to(tdt)
             v = torch.randn((1, skv, hkv, d), generator=gen, device=dev).to(tdt)
-            q_pos = torch.arange(sq, device=dev, dtype=torch.int32) + (skv - sq)
+            # causal: suffix-aligned queries (a prefill); non-causal: the
+            # positions the model passes (encoder and cross: arange)
+            q_pos = torch.arange(sq, device=dev, dtype=torch.int32) + (skv - sq if causal else 0)
             kv_pos = torch.arange(skv, device=dev, dtype=torch.int32)
-            args = dict(causal=True, window=window, q_pos=q_pos, kv_pos=kv_pos)
+            args = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
             got = kf.flash_attention_hopper(q, k, v, **args)
             want = kf.flash_attention_plain(q, k, v, **args)
             torch.cuda.synchronize()
             err, ok = _close(got, want, KERNEL_TOL[dtype])
             print(f"kernel flash_attention {dtype} {shape} {hq}/{hkv} D={d} {name} Sq={sq} "
-                  f"Skv={skv} window={window}: max_abs_err={err:.3e} tol={KERNEL_TOL[dtype]} "
-                  f"{'ok' if ok else 'FAIL'}")
+                  f"Skv={skv} window={window} causal={causal}: max_abs_err={err:.3e} "
+                  f"tol={KERNEL_TOL[dtype]} {'ok' if ok else 'FAIL'}")
             if not ok or not torch.isfinite(got.float()).all():
                 _fail(f"flash_attention {dtype} {shape} {name} disagrees with its plain version")
-            if dtype == "bfloat16" and name == "prefill" and shape in TIMED:
-                pairs = attention_mask(q_pos, kv_pos, causal=True, window=None).sum().item()
+            if dtype == "bfloat16" and ("flash_attention", shape, name) in TIMED:
+                pairs = attention_mask(q_pos, kv_pos, causal=causal, window=window).sum().item()
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                timed[("flash_attention", shape)] = dict(
-                    max_abs_err=err,
+                timed[("flash_attention", shape, name)] = dict(
+                    max_abs_err=err, label=f"Sq {sq}, Skv {skv}, causal {causal}",
                     bound=_bound(4.0 * pairs * hq * d, _nbytes(q, k, v, got, q_pos, kv_pos),
                                  dtype),
                     **_attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, **args),
                                   lambda: kf.flash_attention_plain(q, k, v, **args),
                                   lambda: F.scaled_dot_product_attention(
-                                      qt, kt, vt, is_causal=True, enable_gqa=True)))
+                                      qt, kt, vt, is_causal=causal, enable_gqa=True)))
         for shape, name, s, mask_kind in DECODE_CASES:
             hq, hkv, d = ATTN_SHAPES[shape]
             q = torch.randn((1, hq, d), generator=gen, device=dev).to(tdt)
             k = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(tdt)
             v = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(tdt)
             idx = torch.arange(s, device=dev)
-            if mask_kind is None:                 # the engine's pos >= max_seq case
+            if mask_kind is None:     # pos >= max_seq in the engine; a cross cache
                 mask = torch.ones((1, s), dtype=torch.bool, device=dev)
             else:
                 pos, window = mask_kind
@@ -301,31 +339,31 @@ def kernel_phase(torch, dev):
                   f"tol={KERNEL_TOL[dtype]} {'ok' if ok else 'FAIL'}")
             if not ok or not torch.isfinite(got.float()).all():
                 _fail(f"decode_attention {dtype} {shape} {name} disagrees with its plain version")
-            if dtype == "bfloat16" and name == "decode" and shape in TIMED:
+            if dtype == "bfloat16" and ("decode_attention", shape, name) in TIMED:
                 n_valid = mask.sum().item()
                 kv_rows = n_valid * hkv * d * k.element_size()
                 qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
                 amask = mask[:, None, None, :]
-                timed[("decode_attention", shape)] = dict(
-                    max_abs_err=err,
+                timed[("decode_attention", shape, name)] = dict(
+                    max_abs_err=err, label=f"S {s}, {n_valid} valid",
                     bound=_bound(4.0 * n_valid * hq * d,
                                  _nbytes(q, got, mask) + 2 * kv_rows, dtype),
                     **_attn_times(torch, lambda: kd.decode_attention_hopper(q, k, v, mask),
                                   lambda: kd.decode_attention_plain(q, k, v, mask),
                                   lambda: F.scaled_dot_product_attention(
                                       qt, kt, vt, attn_mask=amask, enable_gqa=True)))
-    for (name, shape), t in timed.items():
+    for (kernel, shape, name), t in timed.items():
         hq, hkv, d = ATTN_SHAPES[shape]
-        print(f"time {name} bf16 ({shape} shape, {hq}/{hkv} heads, D {d}, S 512), device "
-              f"(graph replay): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
-              f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
+        print(f"time {kernel} bf16 ({shape} {name}, {hq}/{hkv} heads, D {d}, {t['label']}), "
+              f"device (graph replay): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"sdpa {t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
               f"kernel launch by launch (host included) {t['launch_ms']:.4f} ms")
-    hq, hkv, d = ATTN_SHAPES["granite"]
-    print(f"decode_attention splits at granite's decode (B 1, S {MAX_SEQ}, {hkv} kv heads): "
-          f"{kd.decode_splits(1, MAX_SEQ, hkv, kd._sms(0))} -> "
-          f"{kd.decode_splits(1, MAX_SEQ, hkv, kd._sms(0)) * hkv} blocks "
-          f"(B * Hkv = {hkv}) on {kd._sms(0)} SMs")
-    return {name: t for (name, shape), t in timed.items() if shape == "granite"}
+    for shape, s in (("granite", MAX_SEQ), ("whisper", 1500), ("internvl2", MAX_SEQ)):
+        hq, hkv, d = ATTN_SHAPES[shape]
+        splits = kd.decode_splits(1, s, hkv, kd._sms(0))
+        print(f"decode_attention splits at {shape}'s decode (B 1, S {s}, {hkv} kv heads): "
+              f"{splits} -> {splits * hkv} blocks on {kd._sms(0)} SMs")
+    return timed
 
 
 def _ssm_inputs(torch, gen, bt, t, din, n, dtype):
@@ -400,22 +438,25 @@ def ssm_kernel_phase(torch, dev):
 # --------------------------------------------------------------------------- #
 
 
-def model_phase(torch, dev, cfg, label):
-    """Prefill of a MODEL_PROMPT-token prompt + 4 decode steps through the
-    hand kernels and through the plain oracles on one set of fp32 weights."""
+def model_phase(torch, dev, cfg, label, *, max_seq=MAX_SEQ, prompt=MODEL_PROMPT,
+                extras=None):
+    """Prefill of a ``prompt``-token prompt + 4 decode steps through the hand
+    kernels and through the plain oracles on one set of fp32 weights.
+    ``extras(gen)`` gives the prefill's other inputs (frames, image embeds)."""
     from repro_torch.models import registry
 
-    kernel = registry.build(cfg, max_seq=MAX_SEQ, device=dev)
+    kernel = registry.build(cfg, max_seq=max_seq, device=dev)
     plain = registry.build(dataclasses.replace(cfg, attention_impl="oracle"),
-                           max_seq=MAX_SEQ, device=dev)
+                           max_seq=max_seq, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = kernel.init(gen)
     print(f"model {label}: {sum(t.numel() for t in model.state_dict().values()) / 1e9:.3f} B "
           f"parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    tokens = torch.randint(0, cfg.vocab_size, (1, MODEL_PROMPT), generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen, device=dev)
+    batch = {"tokens": tokens, **(extras(gen) if extras else {})}
     with torch.inference_mode():
-        lk, ck, pos = kernel.prefill(model, {"tokens": tokens})
-        lp, cp, _ = plain.prefill(model, {"tokens": tokens})
+        lk, ck, pos = kernel.prefill(model, batch)
+        lp, cp, _ = plain.prefill(model, batch)
         steps = [("prefill", lk, lp)]
         for i in range(4):
             tok = lk.argmax(-1)
@@ -446,17 +487,28 @@ def _free(torch):
 # --------------------------------------------------------------------------- #
 
 
-def engine_phase(torch):
+def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=None,
+                 zero_tail=False, designs=True):
+    """The bf16 full-width InferenceEngine: cold start, REQUESTS requests,
+    scale to zero, snapshot restore, 1 request (the first's tokens), with
+    exact launch counts; ``launches`` is (flash a prefill, decode a decode
+    step), one attention layer's each by default.  ``extras(rng)`` draws a
+    request's other inputs; ``zero_tail``: every token after the first is 0
+    (whisper's decode past its position table).  Then the restore designs
+    (granite) or the restore gate, and one traced request."""
     import numpy as np
     from repro_torch.config import get_config
+    from repro_torch.core.lifecycle import Phase
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.serving.engine import InferenceEngine, SnapshotStore
 
-    cfg = get_config(ARCH)
-    layers, vocab = cfg.num_layers, cfg.vocab_size
+    cfg = get_config(arch)
+    vocab = cfg.vocab_size
+    per_prefill, per_step = launches or (cfg.num_layers, cfg.num_layers)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, vocab, (1, MAX_SEQ)).astype(np.int32) for _ in range(REQUESTS)]
+    prompts = [rng.integers(0, vocab, (1, max_seq)).astype(np.int32) for _ in range(REQUESTS)]
+    inputs = [extras(rng) if extras else None for _ in range(REQUESTS)]
 
     def counts():
         return kf.launches, kd.launches
@@ -466,49 +518,65 @@ def engine_phase(torch):
         print(f"launches during {what}: flash_attention {got[0]}, decode_attention {got[1]} "
               f"(expected {flash}, {decode})")
         if got != (flash, decode):
-            _fail(f"launch counts during {what}: {got} != {(flash, decode)}")
+            _fail(f"{arch} launch counts during {what}: {got} != {(flash, decode)}")
+
+    def serve(i):
+        return eng.serve(prompts[i], decode_steps=DECODE_STEPS, extras=inputs[i])
 
     with tempfile.TemporaryDirectory() as snapdir:
-        eng = InferenceEngine(ARCH, smoke=False, max_seq=MAX_SEQ, batch=1,
+        eng = InferenceEngine(arch, smoke=False, max_seq=max_seq, batch=1,
                               store=SnapshotStore(snapdir), device="cuda")
         kf.launches = kd.launches = 0               # the main path starts here
         c = counts()
         bd = eng.cold_start()
-        print(f"engine cold_start: {bd} (nvcc build {eng.build_s:.2f} s, set-up), "
+        print(f"engine {arch} cold_start: {bd} (nvcc build {eng.build_s:.2f} s, set-up), "
               f"weights {eng.package_bytes() / 1e9:.3f} GB bf16")
-        expect("cold_start (warm-up)", c, layers, layers)
+        expect("cold_start (warm-up)", c, per_prefill, per_step)
         outs = []
-        for i, p in enumerate(prompts):
+        for i in range(REQUESTS):
             c = counts()
-            out, st = eng.serve(p, decode_steps=DECODE_STEPS)
-            print(f"engine serve {i}: prefill {st.prefill_s * 1e3:.2f} ms, decode "
+            out, st = serve(i)
+            print(f"engine {arch} serve {i}: prefill {st.prefill_s * 1e3:.2f} ms, decode "
                   f"{st.decode_s * 1e3:.2f} ms for {st.tokens} tokens "
                   f"({st.decode_s / st.tokens * 1e3:.3f} ms/token), tokens {out[0].tolist()}")
-            expect(f"serve {i}", c, layers, layers * DECODE_STEPS)
+            expect(f"serve {i}", c, per_prefill, per_step * DECODE_STEPS)
             if out.shape != (1, DECODE_STEPS) or not ((out >= 0) & (out < vocab)).all():
-                _fail(f"serve {i} tokens out of range: {out}")
+                _fail(f"{arch} serve {i} tokens out of range: {out}")
+            if zero_tail and (out[0, 1:] != 0).any():
+                _fail(f"{arch} serve {i}: tokens after the first {out[0, 1:]} are not all 0")
             outs.append(out)
+        if zero_tail:
+            print(f"engine {arch}: every token after the first is 0 (decodes at max_seq + i "
+                  f"read NaN past the {max_seq}-row position table, as jnp.take fills)")
         eng.shutdown()
         c = counts()
         bd2 = eng.cold_start(from_snapshot=True)
-        print(f"engine restore: {bd2}")
+        print(f"engine {arch} restore: {bd2}")
         expect("restore (warm key: no warm-up)", c, 0, 0)
         c = counts()
-        out, st = eng.serve(prompts[0], decode_steps=DECODE_STEPS)
-        print(f"engine serve after restore: prefill {st.prefill_s * 1e3:.2f} ms, decode "
+        out, st = serve(0)
+        print(f"engine {arch} serve after restore: prefill {st.prefill_s * 1e3:.2f} ms, decode "
               f"{st.decode_s * 1e3:.2f} ms, tokens {out[0].tolist()}")
-        expect("serve after restore", c, layers, layers * DECODE_STEPS)
+        expect("serve after restore", c, per_prefill, per_step * DECODE_STEPS)
         if not np.array_equal(out, outs[0]):
-            _fail(f"tokens after restore {out} != first request's {outs[0]}")
+            _fail(f"{arch} tokens after restore {out} != first request's {outs[0]}")
         total = counts()                              # read just after the main path
         n_serves = REQUESTS + 1
-        want = (layers * (1 + n_serves), layers * (1 + n_serves * DECODE_STEPS))
-        print(f"launches over the engine run: flash_attention {total[0]} "
-              f"({layers}/prefill), decode_attention {total[1]} ({layers}/decode step)")
+        want = (per_prefill * (1 + n_serves), per_step * (1 + n_serves * DECODE_STEPS))
+        print(f"launches over the {arch} engine run: flash_attention {total[0]} "
+              f"({per_prefill}/prefill), decode_attention {total[1]} ({per_step}/decode step)")
         if total != want:
-            _fail(f"engine run launches {total} != {want}")
-        restore_designs(eng, bd, bd2, prompts[0], outs[0])
-        profile_serve(torch, lambda: _wall(eng.serve(prompts[1], decode_steps=DECODE_STEPS)[1]))
+            _fail(f"{arch} engine run launches {total} != {want}")
+        if designs:
+            restore_designs(eng, bd, bd2, prompts[0], outs[0])
+        else:
+            dl = bd2.seconds.get(Phase.DEPS_LOAD, 0.0)
+            size = eng.package_bytes()
+            source = "pinned host copy" if eng.key in eng.store.host else "file"
+            print(f"engine {arch} restore from the {source}: deps_load {dl * 1e3:.2f} ms for "
+                  f"{size / 1e9:.3f} GB = {size / 1e9 / dl:.2f} GB/s")
+            _gate_restore(f"{arch} full width", bd, bd2)
+        profile_serve(torch, lambda: _wall(serve(1)[1]))
     return {"flash_attention": total[0], "decode_attention": total[1]}
 
 
@@ -1593,6 +1661,170 @@ def forecaster_phase(torch, dev):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phases 15-17: the encoder-decoder and vision families, and fuse_chain
+# --------------------------------------------------------------------------- #
+
+# whisper-large-v3 at its published decoder context (n_text_ctx 448,
+# arXiv:2212.04356); 1500 encoder frames of d 1280
+ENCDEC, ENCDEC_SEQ = "whisper-large-v3", 448
+# internvl2-1b with 256 image embeddings a request; the fp32 model phase's
+# prompt keeps 300 - 256 = 44 text tokens
+VISION, VISION_PROMPT = "internvl2-1b", 300
+# fuse_chain's pair (tests/test_serving.py's): granite -> h2o-danube-3
+CHAIN = ("granite-3-2b", "h2o-danube-3-4b")
+
+
+def _extras(torch, cfg):
+    """Random draws of the prefill's other input (whisper's frames, internvl2's
+    image embeds): from a torch Generator (the model phase) and from a numpy
+    Generator (a request's extras, fp32; the engine casts them)."""
+    key, shape = (("frames", (1, cfg.encoder.num_frames, cfg.encoder.d_model))
+                  if cfg.encoder is not None else
+                  ("image_embeds", (1, cfg.vision.num_image_tokens, cfg.vision.d_embed)))
+    return (lambda gen: {key: torch.randn(shape, generator=gen, device=gen.device)},
+            lambda rng: {key: rng.standard_normal(shape).astype("float32")})
+
+
+def encdec_phase(torch, dev):
+    """whisper-large-v3 at full width: fp32 kernel path vs oracle path (a
+    120-token prefill on 1500 random frames, 4 decode steps below max_seq);
+    the bf16 engine with frames (96 flash launches a prefill: encoder,
+    decoder self, cross; 64 decode launches a step: self, cross); one
+    ServerlessRouter COLD then warm request with extras."""
+    from repro_torch.config import get_config
+
+    cfg = get_config(ENCDEC)
+    model_extras, request_extras = _extras(torch, cfg)
+    model_phase(torch, dev, dataclasses.replace(cfg, dtype="float32", param_dtype="float32"),
+                f"{ENCDEC} fp32", max_seq=ENCDEC_SEQ, extras=model_extras)
+    n = cfg.num_layers
+    launches = engine_phase(torch, ENCDEC, max_seq=ENCDEC_SEQ, launches=(3 * n, 2 * n),
+                            extras=request_extras, zero_tail=True, designs=False)
+    _free(torch)
+    router_extras_phase(torch, ENCDEC, ENCDEC_SEQ, (3 * n, 2 * n))
+    return launches
+
+
+def vision_phase(torch, dev):
+    """internvl2-1b at full width: fp32 kernel path vs oracle path with 256
+    image embeddings; the bf16 engine with image_embeds (24 flash launches a
+    prefill, 24 decode launches a step)."""
+    from repro_torch.config import get_config
+
+    cfg = get_config(VISION)
+    model_extras, request_extras = _extras(torch, cfg)
+    model_phase(torch, dev, dataclasses.replace(cfg, dtype="float32", param_dtype="float32"),
+                f"{VISION} fp32", prompt=VISION_PROMPT, extras=model_extras)
+    launches = engine_phase(torch, VISION, extras=request_extras, designs=False)
+    _free(torch)
+    return launches
+
+
+def router_extras_phase(torch, arch, max_seq, per):
+    """One function behind a ServerlessRouter: a COLD then a warm request,
+    each with ``extras``; exact launches, equal tokens, warm faster."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.fleet.pool import EngineProfile
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.serving.engine import SnapshotStore
+    from repro_torch.serving.router import FunctionDef, ServerlessRouter
+
+    cfg = get_config(arch)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (1, max_seq)).astype(np.int32)
+    extras = _extras(torch, cfg)[1](rng)
+    with tempfile.TemporaryDirectory() as snapdir:
+        router = ServerlessRouter(ttl_s=300.0, store=SnapshotStore(snapdir))
+        router.register(FunctionDef("f", arch, max_seq=max_seq, decode_steps=DECODE_STEPS))
+        router.backend.profiles["f"] = EngineProfile(arch=arch, max_seq=max_seq,
+                                                     decode_steps=DECODE_STEPS, smoke=False)
+        kf.launches = kd.launches = 0                 # the router's path starts here
+        outs, recs = [], []
+        for what, warm_ups in (("first", 1), ("second", 0)):
+            c = (kf.launches, kd.launches)
+            out, rec = router.invoke("f", tokens, extras=extras)
+            got = (kf.launches - c[0], kd.launches - c[1])
+            want = (per[0] * (1 + warm_ups), per[1] * (DECODE_STEPS + warm_ups))
+            print(f"router {arch} {what}: {'COLD' if rec.cold else 'warm'} latency "
+                  f"{rec.latency * 1e3:.2f} ms startup {rec.startup}; launches flash_attention, "
+                  f"decode_attention {got} (expected {want}); tokens {out[0].tolist()}")
+            if got != want:
+                _fail(f"router {arch} {what}: launch counts {got} != {want}")
+            outs.append(out)
+            recs.append(rec)
+        if not (recs[0].cold and not recs[1].cold and recs[1].latency < recs[0].latency):
+            _fail(f"router {arch}: expected COLD then a faster warm request")
+        if not np.array_equal(outs[0], outs[1]):
+            _fail(f"router {arch}: warm tokens {outs[1]} != cold tokens {outs[0]}")
+    _free(torch)
+
+
+def chain_phase(torch):
+    """fuse_chain over full-width granite-3-2b -> h2o-danube-3-4b (bf16,
+    max_seq 512, 16 decode steps a stage) as one CUDA graph: the replay's
+    tokens against the stages run one after another eagerly through
+    engine.generate; compile_s, replay ms and the eager chain's ms."""
+    import numpy as np
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.serving.engine import InferenceEngine, fuse_chain, generate
+
+    engines = []
+    for arch in CHAIN:
+        eng = InferenceEngine(arch, smoke=False, max_seq=MAX_SEQ, store=None, device="cuda")
+        eng.cold_start()
+        engines.append(eng)
+    layers = sum(e.bundle.cfg.num_layers for e in engines)
+    kf.launches = kd.launches = 0                     # the chain's path starts here
+    fn, compile_s = fuse_chain(engines, decode_steps=DECODE_STEPS)
+    got = (kf.launches, kd.launches)                  # the wrappers ran twice: warm-up, capture
+    want = (2 * layers, 2 * layers * DECODE_STEPS)
+    print(f"chain {' -> '.join(CHAIN)}: compile_s {compile_s:.3f} s (warm-up + capture + "
+          f"instantiate); launches through the wrappers flash_attention, decode_attention "
+          f"{got} (expected {want}: the warm-up and the capture; a replay runs the captured "
+          f"launches)")
+    if got != want:
+        _fail(f"chain launch counts {got} != {want}")
+
+    def eager(tokens):
+        for eng in engines:
+            tokens = tokens % eng.bundle.cfg.vocab_size
+            gen, _ = generate(eng.bundle, eng.params, tokens, decode_steps=DECODE_STEPS)
+            tokens = np.concatenate([tokens, gen], axis=1)[:, -MAX_SEQ:]
+        return tokens
+
+    rng = np.random.default_rng(11)
+    for i in range(2):
+        tokens = rng.integers(0, 1 << 16, (1, MAX_SEQ)).astype(np.int32)
+        out = fn({"tokens": tokens}).cpu().numpy()
+        want_tokens = eager(tokens)
+        print(f"chain request {i}: graph tokens {out[0, -DECODE_STEPS:].tolist()} (last "
+              f"{DECODE_STEPS}), eager {'equal' if np.array_equal(out, want_tokens) else 'DIFFER'}")
+        if out.shape != (1, MAX_SEQ) or not np.array_equal(out, want_tokens):
+            _fail(f"chain request {i}: the graph's tokens differ from the eager chain's")
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn({"tokens": tokens})
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eager(tokens)
+    eager_ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"chain time: graph replay {replay_ms:.2f} ms a chain (host clock, {reps} runs, "
+          f"input copy and output clone included), eager through engine.generate "
+          f"{eager_ms:.2f} ms ({eager_ms / replay_ms:.2f}x)")
+    for eng in engines:
+        eng.shutdown()
+    del fn
+    _free(torch)
+
+
 def main() -> int:
     import torch
 
@@ -1650,13 +1882,34 @@ def main() -> int:
     gym_kernel_phase(torch, dev)
     gym_launches, gym_timed = gym_phase(torch, dev)
     fc_launches = forecaster_phase(torch, dev)
+    w = encdec_phase(torch, dev)
+    vl = vision_phase(torch, dev)
+    chain_phase(torch)
     # a kernel on several main paths: each path's launches (counts set to 0
-    # just before it, read just after) and its numbers at that path's shape
-    paths = {"flash_attention": [("engine", launches["flash_attention"],
-                                  timed["flash_attention"]),
-                                 ("forecaster", fc_launches, fc_flash[1])],
+    # just before it, read just after) and its numbers at that path's shape.
+    # whisper's prefill runs its 32 layers' flash calls at three shapes
+    # (encoder, decoder self, cross: 96 a prefill, gated exactly) and its
+    # decode steps two (self, cross: 64 a step), so each shape takes its share
+    def at(kernel, shape, name):
+        return timed[(kernel, shape, name)]
+
+    paths = {"flash_attention": [
+                 ("engine", launches["flash_attention"], at("flash_attention", "granite", "prefill")),
+                 ("forecaster", fc_launches, fc_flash[1]),
+                 *((f"whisper-{name}", w["flash_attention"] // 3,
+                    at("flash_attention", "whisper", name))
+                   for name in ("encoder", "decoder", "cross")),
+                 ("internvl2", vl["flash_attention"], at("flash_attention", "internvl2", "prefill"))],
+             "decode_attention": [
+                 ("engine", launches["decode_attention"], at("decode_attention", "granite", "decode")),
+                 *((f"whisper-{name}", w["decode_attention"] // 2,
+                    at("decode_attention", "whisper", name)) for name in ("self", "cross")),
+                 ("internvl2", vl["decode_attention"], at("decode_attention", "internvl2", "decode"))],
              "cluster_step": [("sweep", launches["cluster_step"], timed["cluster_step"]),
                               ("gym", gym_launches, gym_timed)]}
+    timed = {"flash_attention": at("flash_attention", "granite", "prefill"),
+             "decode_attention": at("decode_attention", "granite", "decode"),
+             "ssm_scan": timed["ssm_scan"], "cluster_step": timed["cluster_step"]}
 
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
                 "decode_attention": "src/repro/kernels/decode_attention.py:57",

@@ -1,12 +1,13 @@
 """GQA attention layer (port of ``repro.models.attention``): full-sequence
-and single-token-decode paths, self-attention.
+and single-token-decode paths, self- and cross-attention.
 
 Cache layout per attention layer:
   ``k``/``v``: (B, S_cache, H_kv, head_dim).  For sliding-window archs the
   cache is a **ring buffer** of ``S_cache == window`` slots; for full
   attention ``S_cache == max_seq``.
 Keys are stored *post-RoPE* so decode never re-rotates the cache.
-Cross-attention (encoder-decoder) comes with the encoder slice.
+Cross-attention (the encoder-decoder's) attends a fixed, all-valid
+(B, S_enc, H_kv, head_dim) key / value pair computed once at prefill.
 """
 from __future__ import annotations
 
@@ -20,26 +21,35 @@ from repro_torch.models import layers
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, *, device, gen: Optional[torch.Generator] = None):
+    """``wq``, ``wk``, ``wv``, ``wo`` and, under ``cfg.qkv_bias``, ``bq``,
+    ``bk``, ``bv`` (a cross layer has no biases).  ``d_model`` (with the
+    head counts) sizes an encoder layer: its head dim is d_model / heads."""
+
+    def __init__(self, cfg, d_model: Optional[int] = None, *, cross: bool = False,
+                 num_heads: Optional[int] = None, num_kv_heads: Optional[int] = None,
+                 device, gen: Optional[torch.Generator] = None):
         super().__init__()
-        d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        d = d_model or cfg.d_model
+        h = num_heads or cfg.num_heads
+        hkv = num_kv_heads or cfg.num_kv_heads
+        hd = cfg.head_dim if d_model is None else d // h
         pdt = cfg.param_dtype
         self.wq = layers.dense_init(gen, d, h * hd, pdt, device=device)
         self.wk = layers.dense_init(gen, d, hkv * hd, pdt, device=device)
         self.wv = layers.dense_init(gen, d, hkv * hd, pdt, device=device)
         self.wo = layers.dense_init(gen, h * hd, d, pdt, scale=(h * hd) ** -0.5,
                                     device=device)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.bq = layers.zeros_init(h * hd, pdt, device=device)
             self.bk = layers.zeros_init(hkv * hd, pdt, device=device)
             self.bv = layers.zeros_init(hkv * hd, pdt, device=device)
 
 
-def _proj_qkv(p: Attention, x, h, hkv, hd):
+def _proj_qkv(p: Attention, x, kv_x, h, hkv, hd):
     b = x.shape[0]
     q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    k = kv_x @ p.wk
+    v = kv_x @ p.wv
     if hasattr(p, "bq"):
         q = q + p.bq
         k = k + p.bk
@@ -49,20 +59,28 @@ def _proj_qkv(p: Attention, x, h, hkv, hd):
 
 
 def full_attention(p: Attention, x, cfg, *, q_pos, causal=True, window=None,
-                   use_rope=True, impl=None, return_kv=False):
-    """Full-sequence self-attention (prefill).
+                   kv_x=None, use_rope=True, impl=None, num_heads=None,
+                   num_kv_heads=None, return_kv=False):
+    """Full-sequence attention (prefill, encoder, cross).
 
-    x: (B, Sq, d); q_pos: (Sq,) absolute positions of the queries (= keys).
+    x: (B, Sq, d); kv_x: (B, Skv, d) for cross-attention (default: x).
+    q_pos: (Sq,) absolute positions of the queries (= the keys' when self).
+    Cross-attention is non-causal over keys at ``arange(Skv)``, without RoPE.
     """
-    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    h = num_heads or cfg.num_heads
+    hkv = num_kv_heads or cfg.num_kv_heads
     hd = p.wq.shape[1] // h
-    q, k, v = _proj_qkv(p, x, h, hkv, hd)
-    if use_rope:
+    self_attn = kv_x is None
+    kv_in = x if self_attn else kv_x
+    q, k, v = _proj_qkv(p, x, kv_in, h, hkv, hd)
+    kv_pos = q_pos if self_attn else torch.arange(kv_in.shape[1], device=x.device,
+                                                  dtype=torch.int32)
+    if use_rope and self_attn:
         cos, sin = layers.rope_cos_sin(q_pos, hd, cfg.rope_theta)
         q = layers.apply_rope(q, cos[None], sin[None])
         k = layers.apply_rope(k, cos[None], sin[None])
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              q_pos=q_pos, kv_pos=q_pos,
+    out = ops.flash_attention(q, k, v, causal=causal and self_attn, window=window,
+                              q_pos=q_pos, kv_pos=kv_pos,
                               impl=impl or cfg.attention_impl)
     b, sq = x.shape[0], x.shape[1]
     y = out.reshape(b, sq, h * hd) @ p.wo
@@ -88,16 +106,27 @@ def _position(pos, device) -> torch.Tensor:
 
 
 def decode_attention(p: Attention, x, cache, pos, cfg, *, window=None,
-                     use_rope=True, impl=None):
+                     cross_kv=None, use_rope=True, impl=None):
     """One-token decode.  x: (B, d); pos: scalar int (current position).
 
-    Returns (y (B, d), new_cache).
+    Returns (y (B, d), new_cache).  With ``cross_kv = (k, v)`` it attends
+    those fixed encoder keys / values, all valid, and returns ``cache``
+    unchanged.
     """
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     hd = p.wq.shape[1] // h
     b = x.shape[0]
+    impl = impl or cfg.attention_impl
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        q = (x @ p.wq).reshape(b, h, hd)
+        valid = torch.ones((b, k.shape[1]), dtype=torch.bool, device=x.device)
+        out = ops.decode_attention(q, k, v, valid, impl=impl)
+        return out.reshape(b, h * hd) @ p.wo, cache
+
     posv = _position(pos, x.device)
-    q, k, v = _proj_qkv(p, x[:, None, :], h, hkv, hd)
+    q, k, v = _proj_qkv(p, x[:, None, :], x[:, None, :], h, hkv, hd)
     if use_rope:
         cos, sin = layers.rope_cos_sin(posv, hd, cfg.rope_theta)
         q = layers.apply_rope(q, cos[None], sin[None])
@@ -116,7 +145,6 @@ def decode_attention(p: Attention, x, cache, pos, cfg, *, window=None,
     if window is not None and not ring:
         valid &= idx > (posv - window)      # full-size cache, windowed attention
     valid = valid[None].expand(b, s_cache).contiguous()
-    out = ops.decode_attention(q.reshape(b, h, hd), k_cache, v_cache, valid,
-                               impl=impl or cfg.attention_impl)
+    out = ops.decode_attention(q.reshape(b, h, hd), k_cache, v_cache, valid, impl=impl)
     y = out.reshape(b, h * hd) @ p.wo
     return y, {"k": k_cache, "v": v_cache}

@@ -1,0 +1,176 @@
+"""Whisper-style encoder–decoder (port of ``repro.models.encdec``; the
+audio frontend is a stub there too).
+
+Encoder: a non-causal transformer over precomputed frame embeddings
+(B, num_frames, d_enc), with sinusoidal positions added here.  Decoder:
+causal self-attention with learned absolute positions (no RoPE),
+cross-attention over the encoder's output, and a GELU MLP.  The reference
+stacks each stack's layers under ``lax.scan``; here they are an
+``nn.ModuleList`` walked by a Python loop.
+
+Decode caches: ``{"self": [...], "cross": [...]}``, one ``{"k", "v"}`` a
+decoder layer: the self cache padded to ``max_seq`` slots, the cross cache
+(B, num_frames, H_kv, head_dim) computed once at prefill and never written.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from repro_torch.models import attention, layers
+from repro_torch.models.lm import _pad_seq
+
+
+class EncLayer(nn.Module):
+    """``norm1``, ``attn``, ``norm2``, ``ffn`` at the encoder's width."""
+
+    def __init__(self, cfg, *, device, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        e, pdt = cfg.encoder, cfg.param_dtype
+        self.norm1 = layers.norm_init(e.d_model, cfg.norm, pdt, device=device)
+        self.attn = attention.Attention(cfg, e.d_model, num_heads=e.num_heads,
+                                        num_kv_heads=e.num_heads, device=device, gen=gen)
+        self.norm2 = layers.norm_init(e.d_model, cfg.norm, pdt, device=device)
+        self.ffn = layers.MLP(e.d_model, e.d_ff, cfg.act, pdt, device=device, gen=gen)
+
+
+class DecLayer(nn.Module):
+    """``norm1``, ``self``, ``norm_x``, ``cross``, ``norm2``, ``ffn``."""
+
+    def __init__(self, cfg, *, device, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        d, pdt = cfg.d_model, cfg.param_dtype
+        self.norm1 = layers.norm_init(d, cfg.norm, pdt, device=device)
+        self.self = attention.Attention(cfg, device=device, gen=gen)
+        self.norm_x = layers.norm_init(d, cfg.norm, pdt, device=device)
+        self.cross = attention.Attention(cfg, cross=True, device=device, gen=gen)
+        self.norm2 = layers.norm_init(d, cfg.norm, pdt, device=device)
+        self.ffn = layers.MLP(d, cfg.d_ff, cfg.act, pdt, device=device, gen=gen)
+
+
+class EncDec(nn.Module):
+    """Parameters of the encoder–decoder.  ``state_dict`` keys: ``embed``
+    (tied with the unembedding), ``pos`` (max_seq, d), ``enc_blocks.<i>.*``,
+    ``enc_norm.*``, ``dec_blocks.<i>.*``, ``norm_f.*`` (the JAX tree's
+    names; its stacked layer ``i`` is the port's ``<i>``)."""
+
+    def __init__(self, cfg, *, max_seq: int, device,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        e, pdt = cfg.encoder, cfg.param_dtype
+        self.embed = layers.embed_init(gen, cfg.vocab_size, cfg.d_model, pdt, device=device)
+        self.pos = layers.posembed_init(gen, max_seq, cfg.d_model, pdt, device=device)
+        self.enc_blocks = nn.ModuleList(EncLayer(cfg, device=device, gen=gen)
+                                        for _ in range(e.num_layers))
+        self.enc_norm = layers.norm_init(e.d_model, cfg.norm, pdt, device=device)
+        self.dec_blocks = nn.ModuleList(DecLayer(cfg, device=device, gen=gen)
+                                        for _ in range(cfg.num_layers))
+        self.norm_f = layers.norm_init(cfg.d_model, cfg.norm, pdt, device=device)
+
+
+def init_encdec(gen: torch.Generator, cfg, *, max_seq: int, device) -> EncDec:
+    return EncDec(cfg, max_seq=max_seq, device=device, gen=gen)
+
+
+# --------------------------------------------------------------------------- #
+# encoder
+# --------------------------------------------------------------------------- #
+
+
+def encode(p: EncDec, cfg, frames):
+    """frames: (B, F, d_enc) stub embeddings -> (B, F, d_enc)."""
+    e = cfg.encoder
+    x = frames.to(layers.dt(cfg.dtype))
+    x = x + layers.sinusoid_embed(x.shape[1], e.d_model, x.dtype, device=x.device)[None]
+    pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
+    for lp in p.enc_blocks:
+        h = layers.norm_apply(lp.norm1, x, cfg.norm)
+        x = x + attention.full_attention(lp.attn, h, cfg, q_pos=pos, causal=False,
+                                         use_rope=False, num_heads=e.num_heads,
+                                         num_kv_heads=e.num_heads)
+        h = layers.norm_apply(lp.norm2, x, cfg.norm)
+        x = x + layers.mlp_apply(lp.ffn, h, cfg.act)
+    return layers.norm_apply(p.enc_norm, x, cfg.norm)
+
+
+# --------------------------------------------------------------------------- #
+# decoder
+# --------------------------------------------------------------------------- #
+
+
+def _unembed(p: EncDec, x):
+    return x.float() @ p.embed.T.float()     # tied
+
+
+def _dec_hidden(p: EncDec, cfg, tokens, enc_out):
+    """Final-norm hidden states (B, S, d) and each layer's self and cross
+    keys / values."""
+    s = tokens.shape[1]
+    x = p.embed[tokens].to(layers.dt(cfg.dtype))
+    x = x + p.pos[:s][None].to(x.dtype)
+    q_pos = torch.arange(s, device=x.device, dtype=torch.int32)
+    self_kv, cross_kv = [], []
+    for lp in p.dec_blocks:
+        h = layers.norm_apply(lp.norm1, x, cfg.norm)
+        y, (k, v) = attention.full_attention(lp.self, h, cfg, q_pos=q_pos,
+                                             use_rope=False, return_kv=True)
+        x = x + y
+        h = layers.norm_apply(lp.norm_x, x, cfg.norm)
+        y, (xk, xv) = attention.full_attention(lp.cross, h, cfg, q_pos=q_pos,
+                                               kv_x=enc_out, causal=False,
+                                               use_rope=False, return_kv=True)
+        x = x + y
+        h = layers.norm_apply(lp.norm2, x, cfg.norm)
+        x = x + layers.mlp_apply(lp.ffn, h, cfg.act)
+        self_kv.append({"k": k, "v": v})
+        cross_kv.append({"k": xk, "v": xv})
+    return layers.norm_apply(p.norm_f, x, cfg.norm), self_kv, cross_kv
+
+
+def _dec_full(p: EncDec, cfg, tokens, enc_out):
+    """Returns (logits (B, S, V) fp32, self-kv per layer, cross-kv per layer)."""
+    x, self_kv, cross_kv = _dec_hidden(p, cfg, tokens, enc_out)
+    return _unembed(p, x), self_kv, cross_kv
+
+
+def encdec_prefill(p: EncDec, cfg, batch, *, max_seq: int):
+    """Prefill on ``tokens`` and ``frames``: returns (last-token logits,
+    decode caches, next position).  Only the last position is unembedded."""
+    enc_out = encode(p, cfg, batch["frames"])
+    x, self_kv, cross_kv = _dec_hidden(p, cfg, batch["tokens"], enc_out)
+    self_kv = [{key: _pad_seq(t, max_seq) for key, t in c.items()} for c in self_kv]
+    return _unembed(p, x[:, -1, :]), {"self": self_kv, "cross": cross_kv}, x.shape[1]
+
+
+def _learned_position(table, pos, device):
+    """Row ``pos`` of the (max_len, d) table as (1, d): a masked gather that
+    reads row min(pos, max_len - 1) and gives NaN where pos >= max_len, which
+    is ``jnp.take``'s fill for an index past the table.  Nothing is indexed
+    out of bounds and nothing waits on the device, whether ``pos`` is an int
+    or a device scalar."""
+    posv = attention._position(pos, device)
+    max_len = table.shape[0]
+    row = table[posv.clamp(0, max_len - 1)]
+    return torch.where((posv < max_len)[:, None], row, float("nan"))
+
+
+def encdec_decode_step(p: EncDec, cfg, caches, token, pos):
+    """token: (B,) int; pos: scalar int.  Returns (logits (B, V), caches)."""
+    x = p.embed[token].to(layers.dt(cfg.dtype))
+    x = x + _learned_position(p.pos, pos, x.device).to(x.dtype)
+    self_kv = []
+    for lp, skv, xkv in zip(p.dec_blocks, caches["self"], caches["cross"]):
+        h = layers.norm_apply(lp.norm1, x, cfg.norm)
+        y, skv = attention.decode_attention(lp.self, h, skv, pos, cfg, use_rope=False)
+        x = x + y
+        h = layers.norm_apply(lp.norm_x, x, cfg.norm)
+        y, _ = attention.decode_attention(lp.cross, h, None, pos, cfg,
+                                          cross_kv=(xkv["k"], xkv["v"]), use_rope=False)
+        x = x + y
+        h = layers.norm_apply(lp.norm2, x, cfg.norm)
+        x = x + layers.mlp_apply(lp.ffn, h, cfg.act)
+        self_kv.append(skv)
+    x = layers.norm_apply(p.norm_f, x, cfg.norm)
+    return _unembed(p, x), {"self": self_kv, "cross": caches["cross"]}

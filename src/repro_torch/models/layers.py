@@ -1,5 +1,5 @@
 """Shared building blocks (port of ``repro.models.layers``): inits, norms,
-MLPs, RoPE.
+MLPs, RoPE, learned and sinusoidal positions.
 
 Weights are stored ``(in_dim, out_dim)`` as in the JAX package and applied as
 ``x @ w`` (no ``nn.Linear``), so a JAX parameter tree carries over without
@@ -146,3 +146,37 @@ def apply_rope(x, cos, sin):
     c = cos[..., None, :]  # broadcast over heads
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# learned absolute positions (whisper-style decoders)
+# --------------------------------------------------------------------------- #
+
+
+def posembed_init(gen: Optional[torch.Generator], max_len: int, d_model: int,
+                  dtype="float32", *, device) -> nn.Parameter:
+    """N(0, 1) in fp32, cast to ``dtype``, then scaled by 0.02 in ``dtype``
+    (the reference's order of operations)."""
+    w = torch.empty((max_len, d_model), dtype=torch.float32, device=device)
+    if gen is not None:
+        w.normal_(generator=gen)
+    return _param(w.to(dt(dtype)) * 0.02)
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoids(length: int, d_model: int, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    pos = np.arange(length)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    inv = np.exp(-np.log(10000.0) * dim / max(1, d_model // 2 - 1))
+    ang = pos * inv
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb).to(device=device, dtype=dtype)
+
+
+def sinusoid_embed(length: int, d_model: int, dtype=torch.float32, *,
+                   device="cpu") -> torch.Tensor:
+    """Whisper encoder sinusoids (length, d_model), computed in float64 with
+    numpy exactly as the reference does, then cast once (bit-equal in fp32).
+    The cached tensor is shared: callers must not write to it."""
+    return _sinusoids(length, d_model, dtype, torch.device(device))

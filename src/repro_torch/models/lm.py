@@ -1,6 +1,7 @@
 """Decoder-only language model (port of ``repro.models.lm``): attention,
-Mamba and xLSTM blocks with dense, MoE or no FFNs.  Vision inputs and the training loss
-come with later slices."""
+Mamba and xLSTM blocks with dense, MoE or no FFNs, and the vision-language
+backbone, whose projected image embeddings are prepended to the text.  The
+training loss comes with the training slice."""
 from __future__ import annotations
 
 from typing import Optional
@@ -16,15 +17,12 @@ class LM(nn.Module):
     ``blocks.<layer>.{norm1,attn|ssm|xl,norm2,ffn|moe}.<leaf>`` (MoE: ``router``,
     ``wi``, ``wg``, ``wo`` stacked over experts, ``dense.<leaf>``; sLSTM:
     ``xl.{gi,gf,gz,go}.{wx,wh,b}``),
-    ``norm_f.<leaf>`` and, for untied configs, ``unembed`` — every dense
-    weight ``(in, out)``."""
+    ``norm_f.<leaf>``, for untied configs ``unembed`` and, for vision
+    configs, the projector ``proj`` (d_embed, d_model) — every dense weight
+    ``(in, out)``."""
 
     def __init__(self, cfg, *, device, gen: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.vision is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the vision projector is not ported yet "
-                "(ROADMAP item A5)")
         pdt = cfg.param_dtype
         self.embed = layers.embed_init(gen, cfg.vocab_size, cfg.d_model, pdt,
                                        device=device)
@@ -33,15 +31,30 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = layers.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                              pdt, device=device)
+        if cfg.vision is not None:
+            # projector stub: the patch embeddings arrive at LM width already;
+            # one linear keeps the interface of a real MLP projector
+            self.proj = layers.dense_init(gen, cfg.vision.d_embed, cfg.d_model,
+                                          pdt, device=device)
 
 
 def init_lm(gen: torch.Generator, cfg, *, max_seq: int, device) -> LM:
-    del max_seq  # learned positions (whisper-style decoders) are not ported
+    del max_seq  # the reference's signature; an LM has no learned positions
     return LM(cfg, device=device, gen=gen)
 
 
 def _embed_tokens(p: LM, cfg, tokens):
     return p.embed[tokens].to(layers.dt(cfg.dtype))
+
+
+def _inputs_to_x(p: LM, cfg, batch):
+    """tokens (+ image embeds projected and prepended) -> (B, S, d).  The
+    last ``n_img`` text tokens are dropped, so S stays the tokens' length."""
+    x = _embed_tokens(p, cfg, batch["tokens"])
+    if cfg.vision is not None and "image_embeds" in batch:
+        img = batch["image_embeds"].to(x.dtype) @ p.proj
+        x = torch.cat([img, x[:, : x.shape[1] - img.shape[1], :]], dim=1)
+    return x
 
 
 def _unembed(p: LM, cfg, x):
@@ -52,7 +65,7 @@ def _unembed(p: LM, cfg, x):
 def _hidden(p: LM, cfg, batch, *, window=None):
     """Final-norm hidden states (B, S, d), the MoE aux loss and per-layer
     cache material."""
-    x = _embed_tokens(p, cfg, batch["tokens"])
+    x = _inputs_to_x(p, cfg, batch)
     q_pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
     x, aux, caches = transformer.stack_full(p.blocks, x, cfg, q_pos=q_pos,
                                             window=window)

@@ -1,8 +1,8 @@
 """Model registry (port of ``repro.models.registry``): config ->
-``ModelBundle`` (init / prefill / decode), decoder-only configs.
+``ModelBundle`` (init / prefill / decode) for decoder-only and
+encoder-decoder configs.
 
-The bundle is the entry surface of the serving engine.  Encoder-decoder
-configs raise ``NotImplementedError`` (ROADMAP item A5); the training loss
+The bundle is the entry surface of the serving engine.  The training loss
 comes with the training slice.
 """
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.config import InputShape, ModelConfig, canonical_arch_id
 from repro_torch.device import resolve_device
-from repro_torch.models import lm, transformer
+from repro_torch.models import encdec, lm, transformer
 
 
 def resolve_window(cfg: ModelConfig, shape: Optional[InputShape]) -> Optional[int]:
@@ -31,6 +31,9 @@ def resolve_window(cfg: ModelConfig, shape: Optional[InputShape]) -> Optional[in
     return None
 
 
+Model = Union[lm.LM, encdec.EncDec]
+
+
 @dataclasses.dataclass
 class ModelBundle:
     cfg: ModelConfig
@@ -38,26 +41,31 @@ class ModelBundle:
     max_seq: int
     window: Optional[int]
     device: torch.device
-    init: Callable[[torch.Generator], lm.LM]
-    prefill: Callable[[lm.LM, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Any, int]]
-    decode_step: Callable[[lm.LM, Any, torch.Tensor, Any], Tuple[torch.Tensor, Any]]
+    init: Callable[[torch.Generator], Model]
+    prefill: Callable[[Model, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Any, int]]
+    decode_step: Callable[[Model, Any, torch.Tensor, Any], Tuple[torch.Tensor, Any]]
 
-    def empty(self) -> lm.LM:
+    def empty(self) -> Model:
         """The model's parameters on the meta device, for
         ``load_state_dict(state, assign=True)``."""
+        if self.cfg.encoder is not None:
+            return encdec.EncDec(self.cfg, max_seq=self.max_seq, device="meta")
         return lm.LM(self.cfg, device="meta")
 
 
 def build(cfg: ModelConfig, shape: Optional[InputShape] = None, *,
           max_seq: Optional[int] = None,
           device: Union[str, torch.device] = "cuda") -> ModelBundle:
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP item A5)")
     dev = resolve_device(device)
     window = resolve_window(cfg, shape)
     mseq = max_seq or (shape.seq_len if shape else 2048)
+    if cfg.encoder is not None:
+        return ModelBundle(
+            cfg=cfg, shape=shape, max_seq=mseq, window=window, device=dev,
+            init=lambda gen: encdec.init_encdec(gen, cfg, max_seq=mseq, device=dev),
+            prefill=lambda p, b: encdec.encdec_prefill(p, cfg, b, max_seq=mseq),
+            decode_step=lambda p, c, t, pos: encdec.encdec_decode_step(p, cfg, c, t, pos),
+        )
     transformer._block_meta(cfg)   # a bad pattern fails here, not mid-init
     return ModelBundle(
         cfg=cfg, shape=shape, max_seq=mseq, window=window, device=dev,

@@ -17,8 +17,9 @@ in the same four measured phases as the JAX engine:
 Mitigation paths: snapshot/restore (a ``torch.save`` state dict with a
 pinned host copy in process, and a process-level cache of loaded libraries
 and warmed keys: a restore of a warmed key skips the warm-up, as a JAX
-restore skips the compile) and scale-to-zero (``shutdown()``).
-``fuse_chain`` comes with a later slice.
+restore skips the compile), scale-to-zero (``shutdown()``) and fusion:
+``fuse_chain`` runs a chain of stages as one program, on the card one CUDA
+graph (one capture for the chain, where the reference compiles it once).
 
 Every phase ends in ``torch.cuda.synchronize()`` before its clock stops.
 """
@@ -28,7 +29,7 @@ import os
 import tempfile
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -180,11 +181,25 @@ class InferenceEngine:
             return 0
         return sum(t.numel() * t.element_size() for t in self.params.state_dict().values())
 
+    def _prefill_batch_spec(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of each prefill input: the one batch the reference
+        compiles its prefill for — tokens, plus ``frames`` for an encoder and
+        ``image_embeds`` for a vision config, in ``cfg.dtype``."""
+        cfg = self.bundle.cfg
+        act = getattr(torch, cfg.dtype)
+        spec = {"tokens": ((self.batch, self.max_seq), torch.int64)}
+        if cfg.encoder is not None:
+            spec["frames"] = ((self.batch, cfg.encoder.num_frames, cfg.encoder.d_model), act)
+        if cfg.vision is not None:
+            spec["image_embeds"] = ((self.batch, cfg.vision.num_image_tokens,
+                                     cfg.vision.d_embed), act)
+        return spec
+
     def _warm_up(self) -> None:
-        """One prefill and one decode step at the engine's shapes."""
-        tokens = torch.zeros((self.batch, self.max_seq), dtype=torch.int64,
-                             device=self.device)
-        logits, caches, pos = self.bundle.prefill(self.params, {"tokens": tokens})
+        """One prefill on zero inputs of the batch spec and one decode step."""
+        batch = {k: torch.zeros(shape, dtype=dtype, device=self.device)
+                 for k, (shape, dtype) in self._prefill_batch_spec().items()}
+        logits, caches, pos = self.bundle.prefill(self.params, batch)
         self.bundle.decode_step(self.params, caches, logits.argmax(-1), pos)
 
     # ------------------------------------------------------------------ #
@@ -231,16 +246,20 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------ #
     def _check_extras(self, extras: Mapping[str, np.ndarray]) -> None:
-        """The reference compiles its prefill for one batch spec: tokens, plus
-        ``frames`` for an encoder and ``image_embeds`` for a vision config."""
-        cfg = self.bundle.cfg
-        usable = {"frames": cfg.encoder is not None,
-                  "image_embeds": cfg.vision is not None}
+        """The reference's compiled prefill takes exactly its batch spec:
+        an unknown key, a missing input or a wrong shape is refused."""
+        spec = self._prefill_batch_spec()
         for key in extras:
-            if not usable.get(key, False):
+            if key == "tokens" or key not in spec:
                 raise ValueError(f"{self.arch}: the prefill takes no {key!r} input")
-            raise NotImplementedError(
-                f"{self.arch}: {key!r} inputs are not ported yet (ROADMAP item A5)")
+        for key, (shape, _) in spec.items():
+            if key == "tokens":
+                continue
+            if key not in extras:
+                raise ValueError(f"{self.arch}: the prefill needs {key!r} of shape {shape}")
+            got = tuple(np.shape(extras[key]))
+            if got != shape:
+                raise ValueError(f"{self.arch}: {key!r} must be {shape}, got {got}")
 
     @torch.inference_mode()
     def serve(self, tokens: np.ndarray, *, decode_steps: int = 8,
@@ -250,7 +269,9 @@ class InferenceEngine:
 
         ``tokens`` is (batch, max_seq), the one prefill shape the engine was
         warmed for (the JAX engine's compiled shape).  ``extras`` are merged
-        into the prefill batch, as in the reference.
+        into the prefill batch, as in the reference: ``frames`` for an
+        encoder-decoder, ``image_embeds`` for a vision config, each of the
+        batch spec's shape.
         """
         if not self.warm:
             raise RuntimeError("cold engine — call cold_start() first")
@@ -262,8 +283,8 @@ class InferenceEngine:
         if tokens.min() < 0 or tokens.max() >= vocab:
             # an out-of-range id would be a device-side assert in the gather
             raise ValueError(f"token ids must lie in [0, {vocab})")
-        if extras:
-            self._check_extras(extras)
+        extras = extras or {}
+        self._check_extras(extras)
         out, stats = generate(self.bundle, self.params, tokens, decode_steps=decode_steps,
                               extras=extras)
         self.last_used = time.monotonic()
@@ -295,3 +316,79 @@ def generate(bundle: registry.ModelBundle, params, tokens: np.ndarray, *,
     stats.decode_s = time.perf_counter() - t0
     stats.tokens = decode_steps
     return np.stack(out, axis=1), stats
+
+
+# --------------------------------------------------------------------------- #
+# function fusion: chain LM stages into one program
+# --------------------------------------------------------------------------- #
+
+
+def fuse_chain(engines: List[InferenceEngine], *, decode_steps: int = 4
+               ) -> Tuple[Callable[[Mapping[str, Any]], torch.Tensor], float]:
+    """A chained pipeline of warm engines (stage i's greedy tokens feed stage
+    i+1) as one program.  Returns ``(fn, compile_s)``; ``fn({"tokens": (B,
+    S)})`` returns the last stage's (B, S) int32 tokens on the device.
+
+    Each stage, as the reference's: ``tokens % vocab``, a prefill on the
+    tokens alone, ``decode_steps`` greedy steps at ``S + i``, the generated
+    tokens appended and the last S kept.  On the card the chain is one CUDA
+    graph: one warm-up call, then a capture into static buffers; every token
+    stays on the device, and ``compile_s`` is warm-up + capture +
+    instantiate.  A failed capture raises.  On the CPU ``fn`` runs the chain
+    eagerly and ``compile_s`` is the time of its first (warm-up) call.
+    """
+    bundles = [e.bundle for e in engines]
+    params = [e.params for e in engines]
+    if any(b is None for b in bundles):
+        raise RuntimeError("cold engine in the chain — call cold_start() first")
+    device = bundles[0].device
+    if any(b.device != device for b in bundles):
+        raise ValueError("the chain's engines must share one device")
+    shape = (engines[0].batch, engines[0].max_seq)
+
+    def chained(tokens):
+        for bundle, p in zip(bundles, params):
+            tokens = tokens % bundle.cfg.vocab_size
+            logits, caches, _ = bundle.prefill(p, {"tokens": tokens})
+            tok = logits.argmax(-1)
+            outs = []
+            for i in range(decode_steps):
+                outs.append(tok)
+                logits, caches = bundle.decode_step(p, caches, tok, tokens.shape[1] + i)
+                tok = logits.argmax(-1)
+            gen = torch.stack(outs, dim=1)                          # (B, steps)
+            # generated tokens feed the next stage (same prompt length)
+            tokens = torch.cat([tokens, gen], dim=1)[:, -tokens.shape[1]:]
+        return tokens.to(torch.int32)
+
+    def tokens_of(batch) -> torch.Tensor:
+        tokens = torch.as_tensor(batch["tokens"]).to(device=device, dtype=torch.int64)
+        if tuple(tokens.shape) != shape:
+            raise ValueError(f"tokens must be {shape}, got {tuple(tokens.shape)}")
+        return tokens
+
+    static_in = torch.zeros(shape, dtype=torch.int64, device=device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        if device.type != "cuda":
+            chained(static_in)
+            eager = torch.inference_mode()(lambda batch: chained(tokens_of(batch)))
+            return eager, time.perf_counter() - t0
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            chained(static_in)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_out = chained(static_in)
+        _sync(device)
+    compile_s = time.perf_counter() - t0
+
+    @torch.inference_mode()
+    def replay(batch):
+        static_in.copy_(tokens_of(batch))
+        graph.replay()
+        return static_out.clone()
+
+    return replay, compile_s

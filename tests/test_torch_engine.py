@@ -179,3 +179,62 @@ def test_hybrid_decode_past_max_seq_drops_attention_writes_and_advances_ssm(hybr
             np.testing.assert_allclose(after[key].numpy(), np.asarray(want[key][0]),
                                        atol=1e-4, rtol=1e-4, err_msg=f"{kind} {key}")
             assert torch.equal(before[key], after[key]) == (kind == "A"), (kind, key)
+
+
+# --------------------------------------------------------------------------- #
+# fuse_chain: granite SMOKE -> h2o-danube-3 SMOKE, the reference test's pair
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def chain_engines(tmp_path_factory):
+    root = tmp_path_factory.mktemp("chain")
+    pairs = []
+    for arch in ("granite-3-2b", "h2o-danube-3-4b"):
+        jeng = JaxEngine(arch, smoke=True, max_seq=MAX_SEQ, batch=1,
+                         store=JaxStore(str(root / "jax")))
+        jeng.cold_start()
+        store = SnapshotStore(str(root / "torch"))
+        teng = InferenceEngine(arch, smoke=True, max_seq=MAX_SEQ, batch=1, store=store,
+                               device="cpu")
+        store.save_params(teng.key, params_from_jax(jax.tree.map(np.asarray, jeng.params)))
+        teng.cold_start(from_snapshot=True)
+        pairs.append((jeng, teng))
+    return [j for j, _ in pairs], [t for _, t in pairs]
+
+
+@pytest.mark.parametrize("steps", [2, 5])
+def test_fuse_chain_tokens_equal_the_reference(chain_engines, steps):
+    """The chain (tokens % vocab, prefill, greedy steps at S + i, the last S
+    tokens kept, stage after stage) gives the reference ``fuse_chain``'s
+    tokens; danube's ring cache takes the decode writes at pos % 16."""
+    from repro.serving.engine import fuse_chain as jfuse
+    from repro_torch.serving.engine import fuse_chain
+
+    jengines, tengines = chain_engines
+    jfn, jcompile_s = jfuse(jengines, decode_steps=steps)
+    fn, compile_s = fuse_chain(tengines, decode_steps=steps)
+    assert compile_s > 0 and jcompile_s > 0
+    for seed in range(2):
+        tokens = np.random.default_rng(seed).integers(0, 1000, (1, MAX_SEQ)).astype(np.int32)
+        want = np.asarray(jfn({"tokens": jnp.asarray(tokens)}))
+        got = fn({"tokens": tokens})
+        assert got.dtype == torch.int32 and tuple(got.shape) == (1, MAX_SEQ)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fuse_chain_equals_the_stages_one_after_another(chain_engines):
+    """The chain equals each stage run through ``engine.serve`` in turn."""
+    from repro_torch.serving.engine import fuse_chain
+
+    _, tengines = chain_engines
+    fn, _ = fuse_chain(tengines, decode_steps=3)
+    tokens = np.random.default_rng(9).integers(0, 1000, (1, MAX_SEQ)).astype(np.int32)
+    want = tokens
+    for eng in tengines:
+        want = want % eng.bundle.cfg.vocab_size
+        gen, _ = eng.serve(want, decode_steps=3)
+        want = np.concatenate([want, gen], axis=1)[:, -MAX_SEQ:]
+    np.testing.assert_array_equal(fn({"tokens": tokens}).numpy(), want)
+    with pytest.raises(ValueError, match="tokens must be"):
+        fn({"tokens": tokens[:, 1:]})

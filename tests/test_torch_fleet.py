@@ -179,12 +179,34 @@ def test_engine_serve_takes_the_reference_call_shape(tmp_path):
         eng.serve(tokens, decode_steps=1, extras={"frames": np.zeros((1, 4, 8), np.float32)})
     with pytest.raises(ValueError, match="pixels"):
         eng.serve(tokens, decode_steps=1, extras={"pixels": np.zeros(3)})
-    # a vision config could use image_embeds: that path is not ported (A5)
+    # a vision config takes image_embeds, of its batch spec's shape only
     from repro_torch.config import VisionConfig
     eng.bundle = dataclasses.replace(
         eng.bundle, cfg=dataclasses.replace(eng.bundle.cfg, vision=VisionConfig()))
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match=r"'image_embeds' must be \(1, 256, 896\)"):
         eng.serve(tokens, decode_steps=1, extras={"image_embeds": np.zeros(3)})
+
+
+@pytest.mark.parametrize("arch,key", [("whisper-large-v3", "frames"),
+                                      ("internvl2-1b", "image_embeds")])
+def test_router_serves_extras_to_the_encoder_and_vision_families(tmp_path, arch, key):
+    """``ServerlessRouter.invoke(..., extras=...)`` carries ``frames`` /
+    ``image_embeds`` through the fleet pool to the engine: COLD then warm,
+    with the tokens the engine gives when called directly."""
+    router = ServerlessRouter(ttl_s=300.0, store=SnapshotStore(str(tmp_path)), device="cpu")
+    router.register(FunctionDef("g", arch, max_seq=16, decode_steps=3))
+    eng = InferenceEngine(arch, smoke=True, max_seq=16, store=None, device="cpu")
+    eng.cold_start()
+    shape = eng._prefill_batch_spec()[key][0]
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, eng.bundle.cfg.vocab_size, (1, 16)).astype(np.int32)
+    extras = {key: rng.standard_normal(shape).astype(np.float32)}
+    out1, r1 = router.invoke("g", tokens, extras=extras)
+    out2, r2 = router.invoke("g", tokens, extras=extras)
+    assert r1.cold and not r2.cold and out1.shape == (1, 3)
+    np.testing.assert_array_equal(out1, out2)
+    want, _ = eng.serve(tokens, decode_steps=3, extras=extras)
+    np.testing.assert_array_equal(out1, want)
 
 
 def test_engine_driver_serves_every_invocation(tmp_path, monkeypatch):

@@ -49,6 +49,10 @@ FLASH_CASES = [
     (1, 24, 24, 4, 2, 64, True, None),
     (2, 24, 40, 8, 2, 32, True, 16),
     (1, 512, 512, 32, 8, 64, True, None),     # granite-3-2b prefill
+    (1, 1500, 1500, 20, 20, 64, False, None),  # whisper encoder: ragged 28-row tiles
+    (1, 448, 1500, 20, 20, 64, False, None),  # whisper cross-attention
+    (1, 448, 448, 20, 20, 64, True, None),    # whisper decoder self-attention
+    (1, 512, 512, 14, 2, 64, True, None),     # internvl2: G 7
 ]
 
 
@@ -190,6 +194,33 @@ def test_decode_kernel_edge_cases_on_card(cuda, case, dtype):
     out = got.float().cpu().numpy()
     assert np.isfinite(out).all()
     np.testing.assert_allclose(out, want.float().cpu().numpy(), **_tol(dtype))
+
+
+MODEL_DECODE_CASES = [
+    # (s, hq, hkv, d, valid rows): the encoder-decoder and vision shapes
+    (1500, 20, 20, 64, 1500),   # whisper cross cache: all valid, 1500 = 46 x 32 + 28
+    (448, 20, 20, 64, 448),     # whisper self cache past max_seq: all valid
+    (448, 20, 20, 64, 121),     # whisper self cache mid-decode
+    (512, 14, 2, 64, 300),      # internvl2: G 7 (G * D = 448)
+    (512, 14, 2, 64, 512),
+]
+
+
+@pytest.mark.parametrize("case", MODEL_DECODE_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_the_encdec_and_vision_shapes(cuda, case, dtype):
+    s, hq, hkv, d, n_valid = case
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((1, hq, d), generator=g, device=cuda).to(DTYPES[dtype])
+    k, v = (torch.randn((1, s, hkv, d), generator=g, device=cuda).to(DTYPES[dtype])
+            for _ in range(2))
+    mask = (torch.arange(s, device=cuda) < n_valid)[None].contiguous()
+    before = tdecode.launches
+    got = tdecode.decode_attention_hopper(q, k, v, mask)
+    assert tdecode.launches == before + 1
+    want = tdecode.decode_attention_plain(q, k, v, mask)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **_tol(dtype))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -460,3 +491,52 @@ def test_snapshot_restores_from_pinned_copy_and_file_agree(cuda, tmp_path):
         for name, t in got.items():
             assert t.device.type == "cuda" and t.dtype == state[name].dtype
             assert torch.equal(t, state[name]), name
+
+
+def test_whisper_engine_decodes_past_the_position_table_on_card(cuda, tmp_path):
+    """The engine decodes at max_seq + i, past whisper's learned positions:
+    NaN logits (the reference's ``jnp.take`` fill), tokens 0 after the first,
+    and no device-side assert (the context still runs kernels after)."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.serving.engine import InferenceEngine
+
+    eng = InferenceEngine("whisper-large-v3", smoke=True, max_seq=16, store=None,
+                          device="cuda")
+    eng.cold_start()
+    cfg = eng.bundle.cfg
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (1, 16)).astype(np.int32)
+    frames = rng.standard_normal((1, cfg.encoder.num_frames,
+                                  cfg.encoder.d_model)).astype(np.float32)
+    before = kd.launches
+    out, _ = eng.serve(tokens, decode_steps=4, extras={"frames": frames})
+    torch.cuda.synchronize()
+    assert kd.launches - before == 4 * 2 * cfg.num_layers
+    assert out.shape == (1, 4) and (out[0, 1:] == 0).all()
+    again, _ = eng.serve(tokens, decode_steps=4, extras={"frames": frames})
+    np.testing.assert_array_equal(again, out)
+
+
+def test_fuse_chain_graph_equals_its_eager_chain_on_card(cuda):
+    """granite SMOKE -> h2o-danube-3 SMOKE as one CUDA graph: the replay's
+    tokens equal the stages served one after another, for two inputs."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.serving.engine import InferenceEngine, fuse_chain
+
+    engines = []
+    for arch in ("granite-3-2b", "h2o-danube-3-4b"):
+        eng = InferenceEngine(arch, smoke=True, max_seq=16, store=None, device="cuda")
+        eng.cold_start()
+        engines.append(eng)
+    before = kf.launches
+    fn, compile_s = fuse_chain(engines, decode_steps=3)
+    assert compile_s > 0 and kf.launches - before == 2 * (2 + 2)   # warm-up + capture
+    for seed in range(2):
+        tokens = np.random.default_rng(seed).integers(0, 1000, (1, 16)).astype(np.int32)
+        got = fn({"tokens": tokens}).cpu().numpy()
+        want = tokens
+        for eng in engines:
+            want = want % eng.bundle.cfg.vocab_size
+            gen, _ = eng.serve(want, decode_steps=3)
+            want = np.concatenate([want, gen], axis=1)[:, -16:]
+        np.testing.assert_array_equal(got, want)

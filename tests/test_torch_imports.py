@@ -72,7 +72,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.learn.gym", "repro_torch.learn.agent",
                  "repro_torch.learn.forecaster",
                  "repro_torch.core.predictors.transformer",
-                 "repro_torch.core.predictors.lstm"):
+                 "repro_torch.core.predictors.lstm",
+                 # the encoder-decoder and vision families' slice
+                 "repro_torch.models.encdec", "repro_torch.serving.kvcache"):
         assert name in got["modules"]
 
 

@@ -152,9 +152,23 @@ def test_lifecycle_copy_equals_the_reference():
 
 @pytest.mark.parametrize("arch", ["whisper_large_v3", "internvl2_1b"])
 def test_unported_families_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="A5"):
-        tregistry.build_arch(arch, smoke=True, max_seq=16, device="cpu").init(
-            torch.Generator().manual_seed(0))
+    """The two families that raised ``NotImplementedError`` (A5) until the
+    encoder-decoder and vision slice now build, init and prefill on the CPU
+    (their parity: tests/test_torch_encdec.py, tests/test_torch_vision.py)."""
+    tb = tregistry.build_arch(arch, smoke=True, max_seq=16, device="cpu")
+    model = tb.init(torch.Generator().manual_seed(0))
+    cfg = tb.cfg
+    batch = {"tokens": torch.zeros((1, 16), dtype=torch.int64)}
+    if cfg.encoder is not None:
+        batch["frames"] = torch.zeros((1, cfg.encoder.num_frames, cfg.encoder.d_model))
+    if cfg.vision is not None:
+        batch["image_embeds"] = torch.zeros((1, cfg.vision.num_image_tokens,
+                                             cfg.vision.d_embed))
+    with torch.inference_mode():
+        logits, caches, pos = tb.prefill(model, batch)
+        logits, _ = tb.decode_step(model, caches, logits.argmax(-1), pos - 1)
+    assert pos == 16 and logits.shape == (1, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
 def test_granite_full_width_parameter_count():
