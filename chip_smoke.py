@@ -97,6 +97,35 @@ Phases, each fatal on failure:
                (bf16, max_seq 512, 16 steps a stage) as one CUDA graph: its
                tokens against the stages run eagerly one after another, the
                capture's seconds, a replay's ms and the eager chain's.
+ 18. flash-bwd — the flash backward kernel (csrc/flash_attention_bwd.cu)
+               against its plain version on the kernel phase's flash cases,
+               granite's training shape (B 8, S 256), the forecaster's (B 64,
+               S 16, 4/4, D 8) and a prefill whose first 40 rows see no valid
+               key, fp32 (1e-4) and bf16 (5e-2), each twice and bit-equal;
+               the backward and the forward timed at granite's training shape
+               (bf16) and the forecaster's (fp32) beside the plain versions and
+               scaled_dot_product_attention's (a yardstick only);
+ 19. train-grad — full-width granite-3-2b in fp32 at B 8 x S 256: bundle.loss
+               and every leaf's gradient through the hand kernels (flash 2 a
+               layer under remat, the backward 3 kernels a layer) against the
+               oracle attention on the same weights (loss 1e-5, grad norm 1e-4
+               relative, every leaf within 1e-3 of its largest gradient);
+ 20. train   — 10 bf16 optimizer steps of full-width granite-3-2b through
+               launch/train.py's main at its defaults (B 8 x S 256): every
+               loss, ms per step, tokens/s, peak memory, exact launches
+               (forward 80 a step, backward 120 kernels a step), the losses
+               finite and falling; one more step traced (busy share, kernels
+               by time);
+ 21. forecaster-train — 10 steps of the forecaster's train step on the card
+               and on the CPU from one set of weights (losses within 1e-4),
+               then train_forecaster on the card with its launches counted;
+ 22. smoke-train — two train steps each of SMOKE whisper-large-v3 and
+               internvl2-1b, card vs CPU (losses within 1e-4), launches exact;
+ 23. lifecycle — SMOKE granite-3-2b trained on the card, checkpointed, and
+               served from the engine's SnapshotStore (the trained weights
+               and the trained model's tokens);
+ 24. guard   — ssm_scan and decode attention on card inputs that require grad
+               raise (they have no backward kernel).
 The kernel phase also holds the flash kernel to its plain version at the
 forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it, and
 both attention kernels at whisper's (encoder 1500 x 1500 non-causal, cross
@@ -111,6 +140,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -229,7 +259,7 @@ def _nbytes(*tensors) -> int:
 # encoder-decoder and vision paths'
 ATTN_SHAPES = {"granite": (32, 8, 64), "jamba": (32, 8, 128),
                "danube": (32, 8, 120), "starcoder2": (48, 4, 128),
-               "whisper": (20, 20, 64), "internvl2": (14, 2, 64)}
+               "whisper": (20, 20, 64), "internvl2": (14, 2, 64), "forecaster": (4, 4, 8)}
 FLASH_CASES = [  # (shape, name, Sq, Skv, window, causal)
     ("granite", "prefill", 512, 512, None, True), ("granite", "window128", 512, 512, 128, True),
     ("granite", "ragged", 24, 24, None, True), ("granite", "ragged_suffix", 24, 88, 16, True),
@@ -973,7 +1003,7 @@ def batch_phase(torch, dev):
     return launches, timed
 
 
-def _profile_call(torch, wall_s, call, label):
+def _profile_call(torch, wall_s, call, label, top=4):
     """Device busy share of one ``call()``: the device time from a traced call
     over the wall time of an unprofiled one (the first trace also pays the
     profiler's start-up); the device activities and the top kernels."""
@@ -998,7 +1028,7 @@ def _profile_call(torch, wall_s, call, label):
     print(f"profile {label}: wall {wall_s * 1e3:.2f} ms (unprofiled), device time "
           f"{busy / 1e3:.3f} ms, busy share {busy / (wall_s * 1e6):.5f}, {n} device "
           f"activities")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"profile   {us / 1e3:9.3f} ms  {name[:90]}")
 
 
@@ -1825,6 +1855,404 @@ def chain_phase(torch):
     _free(torch)
 
 
+# --------------------------------------------------------------------------- #
+# phases 18-24: training — the flash backward kernel, full-width granite-3-2b
+# gradients (fp32) and optimizer steps (bf16, launch/train.py), the
+# forecaster's trainer, SMOKE whisper / internvl2 steps, train -> checkpoint
+# -> serve, and the guard on the kernels with no backward
+# --------------------------------------------------------------------------- #
+
+BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+TRAIN_STEPS = 10
+TRAIN_SHAPE = (8, 256)         # launch/train.py's default batch and seq
+GRAD_TOL = dict(loss=1e-5, norm=1e-4, leaf=1e-3)
+FORECASTER_TRAIN_B = 64        # the reference trainer's batch (scripts/train_predictors.py)
+FORECASTER_TRAIN_STEPS = 10
+SMOKE_TRAIN_TOL = 1e-4
+# (shape, name, B, Sq, Skv, window, causal, key shift): the forward phase's
+# cases at B 1, granite's training shape, the forecaster's, and a prefill
+# whose keys start at position 40 (q rows 0-39 see no valid key)
+BWD_CASES = [(shape, name, 1, sq, skv, window, causal, 0)
+             for shape, name, sq, skv, window, causal in FLASH_CASES] + [
+    ("granite", "train", *TRAIN_SHAPE, TRAIN_SHAPE[1], None, True, 0),
+    ("forecaster", "train", FORECASTER_TRAIN_B, 16, 16, None, True, 0),
+    ("granite", "no_valid_key", 1, 100, 100, None, True, 40)]
+BWD_TIMED = {("granite", "train", "bfloat16"), ("forecaster", "train", "float32")}
+
+
+def flash_bwd_phase(torch, dev):
+    """The flash backward kernel against its plain version on every case of
+    BWD_CASES, fp32 and bf16, two calls bit-equal; at granite's training
+    shape (bf16) and the forecaster's (fp32) the backward and the forward
+    timed by graph replay beside the plain versions and, as a yardstick,
+    scaled_dot_product_attention's forward and backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels.ref import attention_mask
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    timed = {}
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        for shape, name, b, sq, skv, window, causal, shift in BWD_CASES:
+            hq, hkv, d = ATTN_SHAPES[shape]
+            q, dout = (torch.randn((b, sq, hq, d), generator=gen, device=dev).to(tdt)
+                       for _ in range(2))
+            k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(tdt)
+                    for _ in range(2))
+            q_pos = torch.arange(sq, device=dev, dtype=torch.int32) + (skv - sq if causal else 0)
+            kv_pos = torch.arange(skv, device=dev, dtype=torch.int32) + shift
+            args = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
+            out = kf.flash_attention_hopper(q, k, v, **args)
+            got = kf.flash_attention_bwd_hopper(q, k, v, out, dout, **args)
+            again = kf.flash_attention_bwd_hopper(q, k, v, out, dout, **args)
+            want = kf.flash_attention_bwd_plain(q, k, v, out, dout, **args)
+            torch.cuda.synchronize()
+            errs = [_close(g, w, BWD_TOL[dtype]) for g, w in zip(got, want)]
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            ok = all(o for _, o in errs) and same and all(torch.isfinite(g.float()).all()
+                                                         for g in got)
+            print(f"kernel flash_attention_bwd {dtype} {shape} {hq}/{hkv} D={d} {name} B={b} "
+                  f"Sq={sq} Skv={skv} window={window} causal={causal} keys from {shift}: "
+                  f"max_abs_err dq {errs[0][0]:.3e} dk {errs[1][0]:.3e} dv {errs[2][0]:.3e} "
+                  f"tol={BWD_TOL[dtype]} bit-equal twice {same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"flash_attention_bwd {dtype} {shape} {name} disagrees with its plain "
+                      f"version or is not deterministic")
+            if (shape, name, dtype) not in BWD_TIMED:
+                continue
+            pairs = attention_mask(q_pos, kv_pos, causal=causal, window=window).sum().item()
+            pairs *= b * hq
+            label = f"B {b}, S {sq}, {hq}/{hkv} heads, D {d}, causal {causal}"
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            f = _attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, **args),
+                            lambda: kf.flash_attention_plain(q, k, v, **args),
+                            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                                   enable_gqa=True))
+            f.update(max_abs_err=_close(out, kf.flash_attention_plain(q, k, v, **args),
+                                        KERNEL_TOL[dtype])[0], label=label,
+                     bound=_bound(4.0 * pairs * d, _nbytes(q, k, v, out, q_pos, kv_pos), dtype,
+                                  exps=pairs))
+            timed[("fwd", shape)] = f
+            # SDPA's backward runs on its forward's stream, so a graph holds
+            # the two together: its backward is (forward + backward) - forward
+            leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+            lib_dout = dout.transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+                return torch.autograd.grad(o, leaves, lib_dout)
+
+            def kernel():
+                return kf.flash_attention_bwd_hopper(q, k, v, out, dout, **args)
+
+            fwd_bwd = _graph_ms(torch, sdpa_fwd_bwd)
+            t = dict(ms=_graph_ms(torch, kernel),
+                     plain_ms=_graph_ms(torch, lambda: kf.flash_attention_bwd_plain(
+                         q, k, v, out, dout, **args)),
+                     library_ms=fwd_bwd - f["library_ms"], launch_ms=_time_ms(torch, kernel))
+            # dq, dk, dv and the recomputed S, dP: five D-long products a pair
+            t.update(max_abs_err=max(e for e, _ in errs), label=label,
+                     bound=_bound(10.0 * pairs * d, _nbytes(q, k, v, out, dout, *got, q_pos,
+                                                            kv_pos), dtype, exps=pairs))
+            timed[("bwd", shape)] = t
+            print(f"time sdpa forward + backward {dtype} ({shape} {name}) {fwd_bwd:.4f} ms, "
+                  f"forward {f['library_ms']:.4f} ms (graph replay)")
+            for what, x in (("flash_attention_bwd", t), ("flash_attention", f)):
+                print(f"time {what} {dtype} ({shape} {name}, {label}), device (graph replay): "
+                      f"kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, sdpa "
+                      f"{x['library_ms']:.4f} ms, bound {x['bound'][0]:.5f} ms "
+                      f"({x['bound'][1]}); kernel launch by launch (host included) "
+                      f"{x['launch_ms']:.4f} ms")
+    return timed
+
+
+def train_grad_phase(torch, dev):
+    """Full-width granite-3-2b in fp32: bundle.loss and the gradient of every
+    leaf at batch 8 x seq 256 through the hand kernels (flash forward twice a
+    layer under remat, the backward once) and through the oracle attention,
+    on one set of weights."""
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models import registry
+    from repro_torch.training.train_loop import to_device, value_and_grad
+
+    cfg = dataclasses.replace(get_config(ARCH), dtype="float32", param_dtype="float32")
+    b, s = TRAIN_SHAPE
+    kernel = registry.build(cfg, max_seq=s, device=dev)
+    plain = registry.build(dataclasses.replace(cfg, attention_impl="oracle"), max_seq=s,
+                           device=dev)
+    model = kernel.init(torch.Generator(device=dev).manual_seed(0))
+    batch = to_device(next(pipeline.batches(cfg, InputShape("train", s, b, "train"))), dev)
+    torch.cuda.reset_peak_memory_stats()
+    kf.launches = kf.bwd_launches = 0
+    t0 = time.perf_counter()
+    lk, _, gk = value_and_grad(kernel, model, batch)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    launches = (kf.launches, kf.bwd_launches)
+    t0 = time.perf_counter()
+    lp, _, gp = value_and_grad(plain, model, batch)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    plain_launches = (kf.launches - launches[0], kf.bwd_launches - launches[1])
+
+    def norm(g):
+        return torch.sqrt(sum(x.double().square().sum() for x in g.values())).item()
+
+    nk, np_ = norm(gk), norm(gp)
+    worst, worst_name = 0.0, ""
+    for name in gp:
+        scale = gp[name].abs().max().item()
+        r = (gk[name] - gp[name]).abs().max().item() / max(scale, 1e-30)
+        if r > worst:
+            worst, worst_name = r, name
+    lk, lp = lk.item(), lp.item()
+    calls = cfg.num_layers                  # flash calls a forward, one a layer
+    want = ((2 if cfg.remat else 1) * calls, 3 * calls)
+    print(f"train-grad {ARCH} fp32 B {b} x S {s}: loss kernel {lk:.7f} plain {lp:.7f} "
+          f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {GRAD_TOL['loss']}); grad norm kernel "
+          f"{nk:.6f} plain {np_:.6f} (rel {abs(nk - np_) / np_:.2e}, tol {GRAD_TOL['norm']}); "
+          f"worst leaf max|diff| / max|grad| {worst:.2e} at {worst_name} (tol "
+          f"{GRAD_TOL['leaf']}); {len(gp)} leaves")
+    print(f"train-grad {ARCH} fp32: loss + grads {t_kernel:.2f} s kernel path, {t_plain:.2f} s "
+          f"plain path; launches flash forward, backward kernels {launches} (expected {want}; "
+          f"plain path {plain_launches}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not (abs(lk - lp) <= GRAD_TOL["loss"] * abs(lp) and abs(nk - np_) <= GRAD_TOL["norm"] * np_
+            and worst <= GRAD_TOL["leaf"] and math.isfinite(nk)):
+        _fail(f"train-grad {ARCH}: the kernel path's loss or gradients disagree with the "
+              f"plain path's")
+    if launches != want or plain_launches != (0, 0):
+        _fail(f"train-grad {ARCH}: launches {launches} / {plain_launches}, expected {want} / (0, 0)")
+    del model, gk, gp
+    _free(torch)
+
+
+def train_phase(torch, dev):
+    """TRAIN_STEPS bf16 optimizer steps of full-width granite-3-2b through
+    ``python -m repro_torch.launch.train``'s main (batch 8 x seq 256), with
+    exact launch counts (flash forward 2 a layer a step under remat, the
+    backward 3 kernels a layer a step), falling finite losses, ms per step,
+    tokens/s and peak memory; then one more step traced.  Returns the flash
+    forward and backward launches of the run."""
+    import numpy as np
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import registry
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step, param_tree, to_device
+
+    b, s = TRAIN_SHAPE
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    kf.launches = kf.bwd_launches = 0                  # the training path starts here
+    res = launcher.main(["--arch", ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(b),
+                         "--seq", str(s), "--device", dev.type])
+    launches = (kf.launches, kf.bwd_launches)          # read just after it
+    peak = torch.cuda.max_memory_allocated()
+    # the forward runs twice a step under remat (again in the backward)
+    want = ((2 if cfg.remat else 1) * cfg.num_layers * TRAIN_STEPS,
+            3 * cfg.num_layers * TRAIN_STEPS)
+    steady = float(np.mean(res.step_s[1:]))
+    print(f"train {ARCH} bf16 B {b} x S {s}, {TRAIN_STEPS} steps through launch/train.py: "
+          f"losses {[round(x, 4) for x in res.losses]}")
+    print(f"train {ARCH}: ms per step {[round(x * 1e3, 1) for x in res.step_s]}; after step 1 "
+          f"{steady * 1e3:.1f} ms a step, {b * s / steady:.0f} tokens/s ({res.tokens_per_s:.0f} "
+          f"tokens/s over all {TRAIN_STEPS} steps, the launcher's figure); peak memory "
+          f"{peak / 1e9:.2f} GB; launches flash forward, backward kernels {launches} (expected "
+          f"{want})")
+    if not np.isfinite(res.losses).all() or not res.losses[-1] < res.losses[0]:
+        _fail(f"train {ARCH}: losses {res.losses} are not finite or do not fall")
+    if launches != want:
+        _fail(f"train {ARCH}: launches {launches} != {want}")
+
+    bundle = registry.build(cfg, max_seq=s, device=dev)
+    params = res.final_params
+    del res
+    _free(torch)
+    opt_state = init_opt_state(param_tree(params))
+    step = make_train_step(bundle, OptimizerConfig(lr=3e-3, warmup_steps=1,
+                                                   total_steps=TRAIN_STEPS))
+    data = pipeline.batches(bundle.cfg, InputShape("train", s, b, "train"), seed=1)
+    batch = to_device(next(data), dev)
+    step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    _profile_call(torch, time.perf_counter() - t0, lambda: step(params, opt_state, batch),
+                  f"{ARCH} train step", top=12)
+    del params, opt_state, batch
+    _free(torch)
+    return launches
+
+
+def forecaster_train_phase(torch, dev):
+    """The forecaster's trainer: FORECASTER_TRAIN_STEPS steps of
+    make_train_step on the card and on the CPU from one set of weights and
+    batches (losses within SMOKE_TRAIN_TOL), then train_forecaster on the
+    card with its flash launches counted.  Returns (forward, backward)
+    launches of that run."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.learn import dataset
+    from repro_torch.learn import forecaster as fc
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step, param_tree, to_device
+
+    cfg, feat = fc.model_config(), fc.FeatureConfig()
+    t0 = time.perf_counter()
+    examples = dataset.build_examples(dataset.training_traces(), feat)
+    data = list(dataset.batches(examples, FORECASTER_TRAIN_B, steps=FORECASTER_TRAIN_STEPS))
+    print(f"forecaster-train: {len(examples['y'])} examples of the training traces, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    host, card = fc.make_bundle(cfg, feat, device="cpu"), fc.make_bundle(cfg, feat, device=dev)
+    p_host = host.init(torch.Generator().manual_seed(0))
+    p_card = fc.forecaster_from_state(p_host.state_dict(), cfg, feat, device=dev)
+    opt = OptimizerConfig(lr=3e-3, warmup_steps=2, total_steps=FORECASTER_TRAIN_STEPS,
+                          weight_decay=0.01)
+    steps = (make_train_step(host, opt), make_train_step(card, opt))
+    states = (init_opt_state(param_tree(p_host)), init_opt_state(param_tree(p_card)))
+    worst = 0.0
+    for batch in data:
+        _, sh, mh = steps[0](p_host, states[0], to_device(batch, torch.device("cpu")))
+        _, sc, mc = steps[1](p_card, states[1], to_device(batch, dev))
+        states = (sh, sc)
+        worst = max(worst, abs(float(mc["loss"]) - float(mh["loss"]))
+                    / (1.0 + abs(float(mh["loss"]))))
+    print(f"forecaster-train card vs CPU, {len(data)} steps of B {FORECASTER_TRAIN_B}: last "
+          f"loss card {float(mc['loss']):.7f} CPU {float(mh['loss']):.7f}; worst step "
+          f"|diff| / (1 + |loss|) {worst:.2e} tol={SMOKE_TRAIN_TOL} "
+          f"{'ok' if worst <= SMOKE_TRAIN_TOL else 'FAIL'}")
+    if worst > SMOKE_TRAIN_TOL:
+        _fail("forecaster-train: the card's losses disagree with the CPU's")
+    kf.launches = kf.bwd_launches = 0                 # the trainer's path starts here
+    params, res, _, _ = fc.train_forecaster(iter(data), steps=len(data), log_every=0,
+                                            log_fn=None, device=dev)
+    launches = (kf.launches, kf.bwd_launches)         # read just after it
+    want = (cfg.num_layers * len(data), 3 * cfg.num_layers * len(data))
+    print(f"forecaster-train train_forecaster on the card: losses "
+          f"{[round(x, 4) for x in res.losses]}; {np.mean(res.step_s[1:]) * 1e3:.2f} ms a step "
+          f"after step 1; launches flash forward, backward kernels {launches} (expected {want})")
+    if launches != want or not np.isfinite(res.losses).all():
+        _fail(f"forecaster-train: launches {launches} != {want} or a loss is not finite")
+    return launches
+
+
+def smoke_train_phase(torch, dev):
+    """One SMOKE whisper-large-v3 and internvl2-1b train step after another,
+    two each, on the card and on the CPU from one set of fp32 weights and
+    batches: the losses within SMOKE_TRAIN_TOL, the launches exact."""
+    from repro_torch.config import InputShape
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models import registry
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step, param_tree, to_device
+
+    for arch in (ENCDEC, VISION):
+        host = registry.build_arch(arch, smoke=True, max_seq=32, device="cpu")
+        card = registry.build_arch(arch, smoke=True, max_seq=32, device=dev)
+        p_host = host.init(torch.Generator().manual_seed(0))
+        p_card = card.empty()
+        p_card.load_state_dict({k: v.to(dev, copy=True) for k, v in p_host.state_dict().items()},
+                               assign=True)
+        cfg = host.cfg
+        # flash calls a step: one a layer; whisper's encoder layers one, its
+        # decoder layers two (self, cross)
+        per_step = (cfg.num_layers if cfg.encoder is None
+                    else cfg.encoder.num_layers + 2 * cfg.num_layers)
+        opt = OptimizerConfig(lr=3e-3, warmup_steps=1, total_steps=2)
+        steps = (make_train_step(host, opt), make_train_step(card, opt))
+        states = (init_opt_state(param_tree(p_host)), init_opt_state(param_tree(p_card)))
+        it = pipeline.batches(cfg, InputShape("train", 32, 2, "train"))
+        kf.launches = kf.bwd_launches = 0
+        for i in range(2):
+            batch = next(it)
+            _, sh, mh = steps[0](p_host, states[0], to_device(batch, torch.device("cpu")))
+            _, sc, mc = steps[1](p_card, states[1], to_device(batch, dev))
+            states = (sh, sc)
+            lh, lc = float(mh["loss"]), float(mc["loss"])
+            ok = abs(lc - lh) <= SMOKE_TRAIN_TOL * (1.0 + abs(lh))
+            print(f"smoke-train {arch} SMOKE step {i}: loss card {lc:.7f} CPU {lh:.7f} "
+                  f"tol={SMOKE_TRAIN_TOL} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"smoke-train {arch}: the card's loss disagrees with the CPU's")
+        launches = (kf.launches, kf.bwd_launches)
+        want = (2 * per_step, 2 * 3 * per_step)
+        print(f"smoke-train {arch}: launches flash forward, backward kernels {launches} "
+              f"(expected {want})")
+        if launches != want:
+            _fail(f"smoke-train {arch}: launches {launches} != {want}")
+
+
+def lifecycle_phase(torch, dev):
+    """SMOKE granite-3-2b trained on the card (8 steps), checkpointed,
+    restored into the engine's SnapshotStore and served from it: the served
+    weights are the trained ones and the tokens those of the trained model."""
+    import numpy as np
+    from repro_torch.config import InputShape
+    from repro_torch.data import pipeline
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import InferenceEngine, SnapshotStore, generate
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import train
+
+    bundle = registry.build_arch(ARCH, smoke=True, max_seq=32, device=dev)
+    data = pipeline.batches(bundle.cfg, InputShape("t", 32, 2, "train"))
+    res = train(bundle, data, steps=8, log_every=0, log_fn=None,
+                opt_cfg=OptimizerConfig(lr=5e-3, warmup_steps=2, total_steps=8))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "model.npz")
+        size = checkpoint.save(ck, res.final_params.state_dict())
+        trained, _ = checkpoint.restore(ck)
+        store = SnapshotStore(str(Path(tmp) / "snaps"))
+        eng = InferenceEngine(ARCH, smoke=True, max_seq=32, batch=1, store=store, device=dev)
+        store.save_params(eng.key, {k: torch.from_numpy(v) for k, v in trained.items()})
+        breakdown = eng.cold_start(from_snapshot=True)
+        same = all(np.array_equal(p.cpu().numpy(), trained[k])
+                   for k, p in eng.params.state_dict().items())
+        tokens = np.ones((1, 32), np.int32)
+        out, _ = eng.serve(tokens, decode_steps=4)
+        want, _ = generate(bundle, res.final_params, tokens, decode_steps=4)
+        eng.shutdown()
+    print(f"lifecycle {ARCH} SMOKE: losses {res.losses[0]:.4f} -> {res.losses[-1]:.4f} in 8 "
+          f"steps on the card; checkpoint {size / 2**20:.1f} MB; served from the snapshot "
+          f"({breakdown}): weights equal the trained {same}, tokens {out[0].tolist()} "
+          f"(trained model {want[0].tolist()})")
+    if not (same and np.array_equal(out, want) and res.losses[-1] < res.losses[0]):
+        _fail("lifecycle: the served snapshot is not the trained model")
+
+
+def guard_phase(torch, dev):
+    """Differentiating through a CUDA kernel that has no backward raises."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    u = torch.randn((1, 8, 16), generator=gen, device=dev, requires_grad=True)
+    rest = (torch.rand((1, 8, 16), generator=gen, device=dev),
+            -torch.rand((16, 4), generator=gen, device=dev),
+            torch.randn((1, 8, 4), generator=gen, device=dev),
+            torch.randn((1, 8, 4), generator=gen, device=dev),
+            torch.ones(16, device=dev), torch.zeros((1, 16, 4), device=dev))
+    q = torch.randn((1, 4, 64), generator=gen, device=dev, requires_grad=True)
+    kc = torch.randn((1, 32, 2, 64), generator=gen, device=dev)
+    mask = torch.ones((1, 32), dtype=torch.bool, device=dev)
+    for name, call in (("ssm_scan", lambda: ops.ssm_scan(u, *rest)),
+                       ("decode_attention", lambda: ops.decode_attention(q, kc, kc, mask))):
+        try:
+            call()
+        except RuntimeError as e:
+            print(f"guard {name} with an input that requires grad on the card: raised ({e})")
+            continue
+        _fail(f"guard: {name} launched on inputs that require grad")
+
+
 def main() -> int:
     import torch
 
@@ -1863,6 +2291,7 @@ def main() -> int:
 
     timed = kernel_phase(torch, dev)
     fc_flash = forecaster_flash(torch, dev)
+    train_timed = flash_bwd_phase(torch, dev)
     timed["ssm_scan"] = ssm_kernel_phase(torch, dev)
     model_phase(torch, dev, dataclasses.replace(get_config(ARCH), dtype="float32",
                                                 param_dtype="float32"), f"{ARCH} fp32")
@@ -1885,6 +2314,12 @@ def main() -> int:
     w = encdec_phase(torch, dev)
     vl = vision_phase(torch, dev)
     chain_phase(torch)
+    train_grad_phase(torch, dev)
+    train_launches = train_phase(torch, dev)
+    fc_train_launches = forecaster_train_phase(torch, dev)
+    smoke_train_phase(torch, dev)
+    lifecycle_phase(torch, dev)
+    guard_phase(torch, dev)
     # a kernel on several main paths: each path's launches (counts set to 0
     # just before it, read just after) and its numbers at that path's shape.
     # whisper's prefill runs its 32 layers' flash calls at three shapes
@@ -1899,7 +2334,12 @@ def main() -> int:
                  *((f"whisper-{name}", w["flash_attention"] // 3,
                     at("flash_attention", "whisper", name))
                    for name in ("encoder", "decoder", "cross")),
-                 ("internvl2", vl["flash_attention"], at("flash_attention", "internvl2", "prefill"))],
+                 ("internvl2", vl["flash_attention"], at("flash_attention", "internvl2", "prefill")),
+                 ("granite-train", train_launches[0], train_timed[("fwd", "granite")]),
+                 ("forecaster-train", fc_train_launches[0], train_timed[("fwd", "forecaster")])],
+             "flash_attention_bwd": [
+                 ("granite-train", train_launches[1], train_timed[("bwd", "granite")]),
+                 ("forecaster-train", fc_train_launches[1], train_timed[("bwd", "forecaster")])],
              "decode_attention": [
                  ("engine", launches["decode_attention"], at("decode_attention", "granite", "decode")),
                  *((f"whisper-{name}", w["decode_attention"] // 2,
@@ -1909,9 +2349,13 @@ def main() -> int:
                               ("gym", gym_launches, gym_timed)]}
     timed = {"flash_attention": at("flash_attention", "granite", "prefill"),
              "decode_attention": at("decode_attention", "granite", "decode"),
-             "ssm_scan": timed["ssm_scan"], "cluster_step": timed["cluster_step"]}
+             "ssm_scan": timed["ssm_scan"], "cluster_step": timed["cluster_step"],
+             "flash_attention_bwd": train_timed[("bwd", "granite")]}
 
+    # the backward has no TPU kernel: the JAX package trains through
+    # jax.vjp of its jnp flash attention (ops.py:46, _flash_reference)
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
+                "flash_attention_bwd": "src/repro/kernels/ops.py:46",
                 "decode_attention": "src/repro/kernels/decode_attention.py:57",
                 "cluster_step": "src/repro/kernels/cluster_step.py:237",
                 "ssm_scan": "src/repro/kernels/ssm_scan.py:62"}
@@ -1924,7 +2368,7 @@ def main() -> int:
     for name, t in timed.items():
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                 "replaces": replaces[name], "launches": launches[name], **numbers(t)}
+                 "replaces": replaces[name], "launches": launches.get(name), **numbers(t)}
         if name in paths:
             entry["launches"] = sum(n for _, n, _ in paths[name])
             entry["paths"] = [{"path": p, "launches": n, **numbers(pt)}

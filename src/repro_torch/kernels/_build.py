@@ -22,7 +22,8 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "decode_attention", "cluster_step", "ssm_scan")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "cluster_step",
+           "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-source flags, appended to NVCC_FLAGS for that library only.  The cluster
@@ -124,6 +125,25 @@ def call(device, fn, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(index):
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors``: grad mode is on and one
+    of them requires grad."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(kernel: str, missing: str, *tensors) -> None:
+    """Raise where autograd would record a CUDA launch of ``kernel``: it has
+    no backward (``missing`` says which is still to come), so its output would
+    carry no gradient and training would go on without one, silently."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward kernel ({missing}); its CUDA launch "
+            f"cannot be differentiated.  Run it under torch.no_grad(), or on "
+            f"the CPU, where its plain version is differentiable")
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

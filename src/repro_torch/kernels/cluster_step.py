@@ -146,6 +146,7 @@ def cluster_sim_hopper(nw, fs, free, arrivals, conc, fparam, promote, dwell,
         return cluster_sim_plain(*args, t_begin=t_begin, extras=extras)
     if nw.device.type != "cuda":
         raise ValueError(f"the cluster step runs on cuda or cpu, not {nw.device}")
+    _build.refuse_grad("cluster_step", "the simulator's step is not differentiated", *args)
     kind = _check(args)
     lib = library()
     c, f, w = nw.shape

@@ -141,6 +141,8 @@ def decode_attention_hopper(q, k_cache, v_cache, valid_mask):
         return decode_attention_plain(q, k_cache, v_cache, valid_mask)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cuda or cpu, not {q.device}")
+    _build.refuse_grad("decode_attention", "decode serves, it is never trained through",
+                       q, k_cache, v_cache)
     _check(q, k_cache, v_cache, valid_mask)
     lib = library()
     b, hq, d = q.shape

@@ -14,9 +14,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_hopper
-from repro_torch.kernels.flash_attention import flash_attention_hopper
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_hopper
 from repro_torch.kernels.ssm_scan import ssm_scan_hopper
 
 IMPLS = ("reference", "pallas", "oracle")
@@ -30,7 +31,11 @@ def _check_impl(impl: str) -> None:
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     q_pos=None, kv_pos=None, impl: str = "reference"):
-    """Blocked attention. q: (B,Sq,Hq,D), k/v: (B,Skv,Hkv,D) -> (B,Sq,Hq,D)."""
+    """Blocked attention. q: (B,Sq,Hq,D), k/v: (B,Skv,Hkv,D) -> (B,Sq,Hq,D).
+
+    With grad mode on and an input that requires grad, the call goes through
+    :class:`FlashAttention` (the backward kernel on CUDA, its plain version
+    on the CPU); otherwise straight to the forward wrapper."""
     _check_impl(impl)
     sq, skv = q.shape[1], k.shape[1]
     if q_pos is None:
@@ -40,10 +45,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if impl == "oracle":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         q_pos=q_pos, kv_pos=kv_pos)
-    return flash_attention_hopper(
-        q, k, v, causal=causal, window=window,
-        q_pos=q_pos.to(device=q.device, dtype=torch.int32),
-        kv_pos=kv_pos.to(device=q.device, dtype=torch.int32))
+    q_pos = q_pos.to(device=q.device, dtype=torch.int32)
+    kv_pos = kv_pos.to(device=q.device, dtype=torch.int32)
+    if _build.needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, q_pos, kv_pos, causal, window)
+    return flash_attention_hopper(q, k, v, causal=causal, window=window,
+                                  q_pos=q_pos, kv_pos=kv_pos)
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, *, impl: str = "reference"):

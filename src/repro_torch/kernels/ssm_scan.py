@@ -101,6 +101,8 @@ def ssm_scan_hopper(u, delta, A, B, C, D, h0):
         return ssm_scan_plain(u, delta, A, B, C, D, h0)
     if u.device.type != "cuda":
         raise ValueError(f"the selective scan runs on cuda or cpu, not {u.device}")
+    _build.refuse_grad("ssm_scan", "the scan's backward kernel, ROADMAP A6's next item",
+                       u, delta, A, B, C, D, h0)
     _check(u, delta, A, B, C, D, h0)
     lib = library()
     bt, t, din = u.shape

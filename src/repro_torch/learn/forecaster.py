@@ -1,5 +1,5 @@
 """The transformer next-invocation-gap quantile forecaster (port of
-``repro.learn.forecaster``), its serving half.
+``repro.learn.forecaster``): serving and training.
 
 A small ``models/transformer.py`` stack (2 layers, d_model 32, 4 heads of
 8, float32): feature windows project into the stack, the last (most
@@ -7,7 +7,9 @@ recent) position reads out through a 3-unit head, and monotone softplus
 offsets turn it into ordered ``(q05, q50, q95)`` quantiles of
 ``log1p(next gap)``.  On the card the stack's attention is the hand flash
 kernel (``kernels/csrc/flash_attention.cu``, its fp32 path), one launch a
-layer.
+layer; training (:func:`train_forecaster`, the port's train loop on the
+pinball loss) runs it forward and the hand backward kernel
+(``kernels/csrc/flash_attention_bwd.cu``) back, in fp32 at (B, 16, 4, 8).
 
 Checkpoints: the JAX package's ``checkpoints/forecaster.npz`` is read
 without JAX (``training/checkpoint.read_reference``, its leaves placed in
@@ -16,10 +18,6 @@ JAX's flatten order of this model's tree); the port writes its own format
 implements the discovery order (explicit path > ``REPRO_FORECASTER_CKPT``
 > ``checkpoints/forecaster.npz``) used by the serving-side predictor and
 the policy catalog.
-
-Training (``make_bundle``, ``train_forecaster``) comes with the training
-slice (ROADMAP A6): it needs the train loop and a gradient through the
-attention kernel, which has no backward yet.
 """
 from __future__ import annotations
 
@@ -34,7 +32,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.learn.features import FeatureConfig
 from repro_torch.models import convert, layers, transformer
+from repro_torch.models.registry import ModelBundle
 from repro_torch.training import checkpoint
+from repro_torch.training.optimizer import OptimizerConfig
+from repro_torch.training.train_loop import TrainResult, train
 
 CHECKPOINT_ENV = "REPRO_FORECASTER_CKPT"
 DEFAULT_CHECKPOINT = os.path.join("checkpoints", "forecaster.npz")
@@ -97,11 +98,11 @@ def forecaster_from_state(state, cfg: ModelConfig, feat: FeatureConfig, *,
     return params
 
 
-def apply_forecaster(params: Forecaster, x, cfg: ModelConfig):
+def apply_forecaster(params: Forecaster, x, cfg: ModelConfig, *, train: bool = False):
     """x: (B, W, n_features) -> ordered (B, 3) log-gap quantiles."""
     h = x @ params.inp.w + params.inp.b
     q_pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
-    h, _, _ = transformer.stack_full(params.stack, h, cfg, q_pos=q_pos)
+    h, _, _ = transformer.stack_full(params.stack, h, cfg, q_pos=q_pos, train=train)
     h = layers.norm_apply(params.norm, h[:, -1, :], cfg.norm)
     raw = h @ params.head.w + params.head.b
     q50 = raw[:, 0]
@@ -117,17 +118,42 @@ def pinball_loss(q, y, quantiles) -> torch.Tensor:
     return torch.mean(torch.maximum(taus * err, (taus - 1.0) * err))
 
 
-def make_bundle(cfg: ModelConfig, feat: FeatureConfig):
-    raise NotImplementedError(
-        "training the forecaster needs the port's train loop and a gradient "
-        "through the attention kernel (ROADMAP A6)")
+def make_bundle(cfg: ModelConfig, feat: FeatureConfig, *, device="cuda") -> ModelBundle:
+    """The forecaster as a ``ModelBundle`` for the train loop: init and the
+    pinball loss over ``batch["x"]`` (B, W, n_features), ``batch["y"]`` (B,)."""
+    dev = resolve_device(device)
+
+    def loss_fn(params, batch):
+        q = apply_forecaster(params, batch["x"], cfg, train=True)
+        loss = pinball_loss(q, batch["y"], feat.quantiles)
+        tokens = torch.tensor(float(batch["y"].shape[0] * feat.window), device=q.device)
+        return loss, {"loss": loss, "tokens": tokens}
+
+    def unsupported(*_a, **_k):
+        raise NotImplementedError("the forecaster has no decode path")
+
+    return ModelBundle(cfg=cfg, shape=None, max_seq=feat.window, window=None, device=dev,
+                       init=lambda gen: Forecaster(cfg, feat, device=dev, gen=gen),
+                       loss=loss_fn, prefill=unsupported, decode_step=unsupported)
 
 
-def train_forecaster(data_iter: Iterator[Dict[str, Any]], *, steps: int, **_kw):
-    raise NotImplementedError(
-        "training the forecaster needs the port's train loop and a gradient "
-        "through the attention kernel (ROADMAP A6); the committed "
-        "checkpoints/forecaster.npz serves in the meantime")
+def train_forecaster(data_iter: Iterator[Dict[str, Any]], *, steps: int,
+                     cfg: Optional[ModelConfig] = None,
+                     feat: Optional[FeatureConfig] = None,
+                     lr: float = 3e-3, log_every: int = 50, log_fn=print,
+                     device="cuda") -> Tuple[Forecaster, TrainResult, ModelConfig,
+                                             FeatureConfig]:
+    """``steps`` AdamW steps on the pinball loss from weights drawn from seed
+    0 on ``device``: the reference's schedule (warm-up to ``lr`` over
+    min(100, steps // 10 + 1) steps, cosine decay, weight decay 0.01)."""
+    cfg = cfg or model_config()
+    feat = feat or FeatureConfig()
+    bundle = make_bundle(cfg, feat, device=device)
+    opt = OptimizerConfig(lr=lr, warmup_steps=min(100, steps // 10 + 1),
+                          total_steps=steps, weight_decay=0.01)
+    result = train(bundle, data_iter, steps=steps, opt_cfg=opt, log_every=log_every,
+                   log_fn=log_fn or (lambda *_a, **_k: None))
+    return result.final_params, result, cfg, feat
 
 
 def save_forecaster(path: str, params: Forecaster, cfg: ModelConfig,

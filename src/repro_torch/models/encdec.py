@@ -18,9 +18,11 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers
-from repro_torch.models.lm import _pad_seq
+from repro_torch.models.lm import _pad_seq, masked_nll
 
 
 class EncLayer(nn.Module):
@@ -79,19 +81,38 @@ def init_encdec(gen: torch.Generator, cfg, *, max_seq: int, device) -> EncDec:
 # --------------------------------------------------------------------------- #
 
 
-def encode(p: EncDec, cfg, frames):
+def _layers(fn, blocks, x, *args, train: bool, remat: bool):
+    """``x = fn(layer, x, *args)`` over ``blocks``, each layer under
+    activation checkpointing with ``train and remat`` (the reference's
+    ``jax.checkpoint`` of its scanned layer).  Returns (x, each layer's
+    other outputs)."""
+    outs = []
+    for lp in blocks:
+        if train and remat:
+            x, *o = checkpoint(fn, lp, x, *args, use_reentrant=False)
+        else:
+            x, *o = fn(lp, x, *args)
+        outs.append(o)
+    return x, outs
+
+
+def _enc_layer(lp: EncLayer, x, cfg, pos):
+    e = cfg.encoder
+    h = layers.norm_apply(lp.norm1, x, cfg.norm)
+    x = x + attention.full_attention(lp.attn, h, cfg, q_pos=pos, causal=False,
+                                     use_rope=False, num_heads=e.num_heads,
+                                     num_kv_heads=e.num_heads)
+    h = layers.norm_apply(lp.norm2, x, cfg.norm)
+    return (x + layers.mlp_apply(lp.ffn, h, cfg.act),)
+
+
+def encode(p: EncDec, cfg, frames, *, train=False):
     """frames: (B, F, d_enc) stub embeddings -> (B, F, d_enc)."""
     e = cfg.encoder
     x = frames.to(layers.dt(cfg.dtype))
     x = x + layers.sinusoid_embed(x.shape[1], e.d_model, x.dtype, device=x.device)[None]
     pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
-    for lp in p.enc_blocks:
-        h = layers.norm_apply(lp.norm1, x, cfg.norm)
-        x = x + attention.full_attention(lp.attn, h, cfg, q_pos=pos, causal=False,
-                                         use_rope=False, num_heads=e.num_heads,
-                                         num_kv_heads=e.num_heads)
-        h = layers.norm_apply(lp.norm2, x, cfg.norm)
-        x = x + layers.mlp_apply(lp.ffn, h, cfg.act)
+    x, _ = _layers(_enc_layer, p.enc_blocks, x, cfg, pos, train=train, remat=cfg.remat)
     return layers.norm_apply(p.enc_norm, x, cfg.norm)
 
 
@@ -104,35 +125,47 @@ def _unembed(p: EncDec, x):
     return x.float() @ p.embed.T.float()     # tied
 
 
-def _dec_hidden(p: EncDec, cfg, tokens, enc_out):
+def _dec_layer(lp: DecLayer, x, cfg, q_pos, enc_out):
+    h = layers.norm_apply(lp.norm1, x, cfg.norm)
+    y, (k, v) = attention.full_attention(lp.self, h, cfg, q_pos=q_pos,
+                                         use_rope=False, return_kv=True)
+    x = x + y
+    h = layers.norm_apply(lp.norm_x, x, cfg.norm)
+    y, (xk, xv) = attention.full_attention(lp.cross, h, cfg, q_pos=q_pos,
+                                           kv_x=enc_out, causal=False,
+                                           use_rope=False, return_kv=True)
+    x = x + y
+    h = layers.norm_apply(lp.norm2, x, cfg.norm)
+    return x + layers.mlp_apply(lp.ffn, h, cfg.act), {"k": k, "v": v}, {"k": xk, "v": xv}
+
+
+def _dec_hidden(p: EncDec, cfg, tokens, enc_out, *, train=False):
     """Final-norm hidden states (B, S, d) and each layer's self and cross
     keys / values."""
     s = tokens.shape[1]
-    x = p.embed[tokens].to(layers.dt(cfg.dtype))
+    x = F.embedding(tokens, p.embed).to(layers.dt(cfg.dtype))
     x = x + p.pos[:s][None].to(x.dtype)
     q_pos = torch.arange(s, device=x.device, dtype=torch.int32)
-    self_kv, cross_kv = [], []
-    for lp in p.dec_blocks:
-        h = layers.norm_apply(lp.norm1, x, cfg.norm)
-        y, (k, v) = attention.full_attention(lp.self, h, cfg, q_pos=q_pos,
-                                             use_rope=False, return_kv=True)
-        x = x + y
-        h = layers.norm_apply(lp.norm_x, x, cfg.norm)
-        y, (xk, xv) = attention.full_attention(lp.cross, h, cfg, q_pos=q_pos,
-                                               kv_x=enc_out, causal=False,
-                                               use_rope=False, return_kv=True)
-        x = x + y
-        h = layers.norm_apply(lp.norm2, x, cfg.norm)
-        x = x + layers.mlp_apply(lp.ffn, h, cfg.act)
-        self_kv.append({"k": k, "v": v})
-        cross_kv.append({"k": xk, "v": xv})
+    x, kv = _layers(_dec_layer, p.dec_blocks, x, cfg, q_pos, enc_out, train=train,
+                    remat=cfg.remat)
+    self_kv, cross_kv = [o[0] for o in kv], [o[1] for o in kv]
     return layers.norm_apply(p.norm_f, x, cfg.norm), self_kv, cross_kv
 
 
-def _dec_full(p: EncDec, cfg, tokens, enc_out):
+def _dec_full(p: EncDec, cfg, tokens, enc_out, *, train=False):
     """Returns (logits (B, S, V) fp32, self-kv per layer, cross-kv per layer)."""
-    x, self_kv, cross_kv = _dec_hidden(p, cfg, tokens, enc_out)
+    x, self_kv, cross_kv = _dec_hidden(p, cfg, tokens, enc_out, train=train)
     return _unembed(p, x), self_kv, cross_kv
+
+
+def encdec_loss(p: EncDec, cfg, batch):
+    """Mean next-token NLL of the decoder over labels >= 0 (no z-loss, aux 0).
+    Returns (loss, {loss, aux, zloss, tokens})."""
+    enc_out = encode(p, cfg, batch["frames"], train=True)
+    logits, _, _ = _dec_full(p, cfg, batch["tokens"], enc_out, train=True)
+    loss, _, denom = masked_nll(logits, batch["labels"])
+    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return loss, {"loss": loss, "aux": zero, "zloss": zero, "tokens": denom.float()}
 
 
 def encdec_prefill(p: EncDec, cfg, batch, *, max_seq: int):

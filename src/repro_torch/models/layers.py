@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch.kernels._build import needs_grad
 
 def dt(name: str) -> torch.dtype:
     return getattr(torch, name)
@@ -58,7 +59,9 @@ def zeros_init(n: int, dtype="float32", *, device) -> nn.Parameter:
 
 
 # --------------------------------------------------------------------------- #
-# norms (forward only: the custom VJPs of the JAX package serve training)
+# norms: fp32 reductions forward; the backward is the reference's custom VJP,
+# x.dtype pointwise math with fp32 reductions (in bf16 its gradients, not
+# autograd's through an fp32 upcast)
 # --------------------------------------------------------------------------- #
 
 _NORM_EPS = 1e-6
@@ -81,17 +84,75 @@ def _mean_last_f32(a, b):
     return (a.float() * b.float()).sum(-1, keepdim=True) / a.shape[-1]
 
 
-def norm_apply(params: Norm, x, kind: str):
-    if kind == "rmsnorm":
-        # inv is cast to x.dtype BEFORE the multiply, as the reference does
-        inv = torch.rsqrt(_mean_last_f32(x, x) + _NORM_EPS).to(x.dtype)
-        return x * inv * params.scale.to(x.dtype)
+def _sum_lead_f32(t, dtype):
+    """``t`` summed in fp32 over every dim but the last, cast to ``dtype``."""
+    return t.float().sum(dim=tuple(range(t.dim() - 1))).to(dtype)
+
+
+def _rmsnorm(x, scale):
+    # inv is cast to x.dtype BEFORE the multiply, as the reference does
+    inv = torch.rsqrt(_mean_last_f32(x, x) + _NORM_EPS).to(x.dtype)
+    return x * inv * scale.to(x.dtype), inv
+
+
+def _layernorm(x, scale, bias):
     d = x.shape[-1]
     mean = x.float().sum(-1, keepdim=True) / d
     var = torch.clamp(_mean_last_f32(x, x) - mean * mean, min=0.0)
     inv = torch.rsqrt(var + _NORM_EPS).to(x.dtype)
-    xc = x - mean.to(x.dtype)
-    return xc * inv * params.scale.to(x.dtype) + params.bias.to(x.dtype)
+    mean = mean.to(x.dtype)
+    return (x - mean) * inv * scale.to(x.dtype) + bias.to(x.dtype), inv, mean
+
+
+class RMSNorm(torch.autograd.Function):
+    """``repro.models.layers._rmsnorm`` with its custom VJP (``_rmsnorm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        y, inv = _rmsnorm(x, scale)
+        ctx.save_for_backward(x, inv, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, inv, scale = ctx.saved_tensors
+        xn = x * inv
+        g2 = g * scale.to(g.dtype)
+        dot = _mean_last_f32(g2, xn).to(g.dtype)
+        dx = (inv * (g2 - xn * dot)).to(x.dtype)
+        return dx, _sum_lead_f32(g * xn, scale.dtype)
+
+
+class LayerNorm(torch.autograd.Function):
+    """``repro.models.layers._layernorm`` with its custom VJP (``_layernorm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        y, inv, mean = _layernorm(x, scale, bias)
+        ctx.save_for_backward(x, inv, mean, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, inv, mean, scale = ctx.saved_tensors
+        xn = (x - mean) * inv
+        g2 = g * scale.to(g.dtype)
+        m1 = (g2.float().sum(-1, keepdim=True) / g2.shape[-1]).to(g.dtype)
+        m2 = _mean_last_f32(g2, xn).to(g.dtype)
+        dx = (inv * (g2 - m1 - xn * m2)).to(x.dtype)
+        return dx, _sum_lead_f32(g * xn, scale.dtype), _sum_lead_f32(g, scale.dtype)
+
+
+def norm_apply(params: Norm, x, kind: str):
+    """The norm; through its autograd function only where a gradient is
+    wanted (serving runs the same forward without building one)."""
+    if kind == "rmsnorm":
+        if needs_grad(x, params.scale):
+            return RMSNorm.apply(x, params.scale)
+        return _rmsnorm(x, params.scale)[0]
+    if needs_grad(x, params.scale, params.bias):
+        return LayerNorm.apply(x, params.scale, params.bias)
+    return _layernorm(x, params.scale, params.bias)[0]
 
 
 # --------------------------------------------------------------------------- #

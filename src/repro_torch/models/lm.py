@@ -1,13 +1,14 @@
 """Decoder-only language model (port of ``repro.models.lm``): attention,
 Mamba and xLSTM blocks with dense, MoE or no FFNs, and the vision-language
-backbone, whose projected image embeddings are prepended to the text.  The
-training loss comes with the training slice."""
+backbone, whose projected image embeddings are prepended to the text; and
+the causal LM loss the trainer differentiates."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from repro_torch.models import layers, transformer
 
@@ -44,7 +45,10 @@ def init_lm(gen: torch.Generator, cfg, *, max_seq: int, device) -> LM:
 
 
 def _embed_tokens(p: LM, cfg, tokens):
-    return p.embed[tokens].to(layers.dt(cfg.dtype))
+    # F.embedding, not p.embed[tokens]: the same rows, and on CUDA a backward
+    # that sums each row's gradient in a sorted pass instead of scattering
+    # atomics into a bf16 table
+    return F.embedding(tokens, p.embed).to(layers.dt(cfg.dtype))
 
 
 def _inputs_to_x(p: LM, cfg, batch):
@@ -62,20 +66,49 @@ def _unembed(p: LM, cfg, x):
     return x.float() @ w.float()
 
 
-def _hidden(p: LM, cfg, batch, *, window=None):
+def _hidden(p: LM, cfg, batch, *, window=None, train=False):
     """Final-norm hidden states (B, S, d), the MoE aux loss and per-layer
     cache material."""
     x = _inputs_to_x(p, cfg, batch)
     q_pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
     x, aux, caches = transformer.stack_full(p.blocks, x, cfg, q_pos=q_pos,
-                                            window=window)
+                                            window=window, train=train)
     return layers.norm_apply(p.norm_f, x, cfg.norm), aux, caches
 
 
-def lm_forward(p: LM, cfg, batch, *, window=None):
-    """Full-sequence forward: returns (logits (B, S, V) fp32, aux, caches)."""
-    x, aux, caches = _hidden(p, cfg, batch, window=window)
+def lm_forward(p: LM, cfg, batch, *, window=None, train=False):
+    """Full-sequence forward: returns (logits (B, S, V) fp32, aux, caches).
+    ``train`` turns on activation checkpointing where ``cfg.remat`` asks."""
+    x, aux, caches = _hidden(p, cfg, batch, window=window, train=train)
     return _unembed(p, cfg, x), aux, caches
+
+
+def masked_nll(logits, labels):
+    """Mean next-token NLL of fp32 ``logits`` (B, S, V) over ``labels >= 0``:
+    (loss, mask, token count)."""
+    mask = labels >= 0
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    denom = mask.sum().clamp(min=1)
+    return torch.where(mask, nll, 0.0).sum() / denom, mask, denom
+
+
+def lm_loss(p: LM, cfg, batch, *, window=None):
+    """Causal LM loss: mean next-token NLL over labels >= 0 (image positions
+    carry none), plus the z-loss 1e-4 * mean(logsumexp^2) and the MoE aux
+    loss.  Returns (total, {loss, aux, zloss, tokens})."""
+    logits, aux, _ = lm_forward(p, cfg, batch, window=window, train=True)
+    labels = batch["labels"]
+    if cfg.vision is not None and "image_embeds" in batch:
+        n_img = batch["image_embeds"].shape[1]
+        labels = torch.cat([torch.full((labels.shape[0], n_img), -1, dtype=labels.dtype,
+                                       device=labels.device),
+                            labels[:, : labels.shape[1] - n_img]], dim=1)
+    loss, mask, denom = masked_nll(logits, labels)
+    # z-loss for logit drift (MaxText default)
+    zl = 1e-4 * torch.where(mask, torch.logsumexp(logits, -1) ** 2, 0.0).sum() / denom
+    total = loss + zl + aux
+    return total, {"loss": loss, "aux": aux, "zloss": zl, "tokens": denom.float()}
 
 
 def lm_prefill(p: LM, cfg, batch, *, max_seq: int, window=None):

@@ -1,9 +1,8 @@
 """Model registry (port of ``repro.models.registry``): config ->
-``ModelBundle`` (init / prefill / decode) for decoder-only and
+``ModelBundle`` (init / loss / prefill / decode) for decoder-only and
 encoder-decoder configs.
 
-The bundle is the entry surface of the serving engine.  The training loss
-comes with the training slice.
+The bundle is the entry surface of the serving engine and the trainer.
 """
 from __future__ import annotations
 
@@ -42,6 +41,7 @@ class ModelBundle:
     window: Optional[int]
     device: torch.device
     init: Callable[[torch.Generator], Model]
+    loss: Callable[[Model, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict]]
     prefill: Callable[[Model, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Any, int]]
     decode_step: Callable[[Model, Any, torch.Tensor, Any], Tuple[torch.Tensor, Any]]
 
@@ -63,6 +63,7 @@ def build(cfg: ModelConfig, shape: Optional[InputShape] = None, *,
         return ModelBundle(
             cfg=cfg, shape=shape, max_seq=mseq, window=window, device=dev,
             init=lambda gen: encdec.init_encdec(gen, cfg, max_seq=mseq, device=dev),
+            loss=lambda p, b: encdec.encdec_loss(p, cfg, b),
             prefill=lambda p, b: encdec.encdec_prefill(p, cfg, b, max_seq=mseq),
             decode_step=lambda p, c, t, pos: encdec.encdec_decode_step(p, cfg, c, t, pos),
         )
@@ -70,6 +71,7 @@ def build(cfg: ModelConfig, shape: Optional[InputShape] = None, *,
     return ModelBundle(
         cfg=cfg, shape=shape, max_seq=mseq, window=window, device=dev,
         init=lambda gen: lm.init_lm(gen, cfg, max_seq=mseq, device=dev),
+        loss=lambda p, b: lm.lm_loss(p, cfg, b, window=window),
         prefill=lambda p, b: lm.lm_prefill(p, cfg, b, max_seq=mseq, window=window),
         decode_step=lambda p, c, t, pos: lm.lm_decode_step(p, cfg, c, t, pos,
                                                            window=window),

@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers, mamba, moe, xlstm
 
@@ -138,14 +139,34 @@ def _block_decode(p: Block, x, cfg, pos, window, cache):
 # --------------------------------------------------------------------------- #
 
 
-def stack_full(blocks: nn.ModuleList, x, cfg, *, q_pos, window=None):
-    """x: (B, S, d) -> (x, summed MoE aux loss, caches), one cache per layer."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+def _period_full(period, x, aux, cfg, q_pos, window):
+    """The layers of one period in turn: (x, aux, their caches)."""
     caches = []
-    for p in blocks:
+    for p in period:
         x, a, c = _block_full(p, x, cfg, q_pos, window)
         aux = aux + a
         caches.append(c)
+    return x, aux, caches
+
+
+def stack_full(blocks: nn.ModuleList, x, cfg, *, q_pos, window=None, train=False):
+    """x: (B, S, d) -> (x, summed MoE aux loss, caches), one cache per layer.
+
+    With ``train`` and ``cfg.remat`` each period runs under activation
+    checkpointing (the reference's ``jax.checkpoint`` of its period): its
+    activations are recomputed in the backward instead of kept.  The numbers
+    are the same either way."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    per = period_len(cfg)
+    caches = []
+    for i in range(0, len(blocks), per):
+        period = blocks[i:i + per]
+        if train and cfg.remat:
+            x, aux, c = checkpoint(_period_full, period, x, aux, cfg, q_pos, window,
+                                   use_reentrant=False)
+        else:
+            x, aux, c = _period_full(period, x, aux, cfg, q_pos, window)
+        caches += c
     return x, aux, caches
 
 

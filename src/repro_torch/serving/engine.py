@@ -73,20 +73,34 @@ class _Timer:
 # --------------------------------------------------------------------------- #
 
 
+_ALIGN = 256      # byte alignment of each tensor in a host image
+
+
+def _view(buf: torch.Tensor, offset: int, like: torch.Tensor) -> torch.Tensor:
+    """The tensor of ``like``'s dtype and shape at byte ``offset`` of the
+    flat uint8 ``buf``."""
+    n = like.numel() * like.element_size()
+    return buf[offset:offset + n].view(like.dtype).view(like.shape)
+
+
 class SnapshotStore:
     """Weight snapshots on disk, a pinned host copy of each in process, and a
     cache of ready "executables" in process.
 
     A snapshot is the engine's ``state_dict`` written by ``torch.save``; the
     file is the source of truth.  Where CUDA is present, ``save_params`` also
-    keeps a page-locked host copy of every tensor (outside the timed phases,
-    as the snapshot itself is written), and ``load_params`` fills tensors
-    allocated on the device from it with asynchronous copies: the restore
-    then runs at the host link's rate instead of the disk's.  A store without
-    that copy (a new process, or the CPU) reads the file, memory-mapped,
-    with ``weights_only=True``: no pickle of foreign types.  The executable
-    cache maps an engine key to its loaded kernel libraries; a key present
-    there has been warmed up in this process.
+    keeps a page-locked host image of the state (outside the timed phases,
+    as the snapshot itself is written): one flat buffer holding every
+    tensor at a 256-byte aligned offset, and ``host[key]``, the tensors as
+    views into it.  ``load_params`` restores that image with one device
+    allocation and one asynchronous copy, and returns the same views into
+    the device buffer: the restore runs at the host link's rate instead of
+    the disk's, and pays no per-tensor allocation (a tensor at a time, the
+    allocator's new segments stall the copies behind them).  A store
+    without the image (a new process, or the CPU) reads the file,
+    memory-mapped, with ``weights_only=True``: no pickle of foreign types.
+    The executable cache maps an engine key to its loaded kernel libraries;
+    a key present there has been warmed up in this process.
     """
 
     def __init__(self, root: Optional[str] = None):
@@ -94,6 +108,7 @@ class SnapshotStore:
         os.makedirs(self.root, exist_ok=True)
         self.executables: Dict[str, Any] = {}
         self.host: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._images: Dict[str, torch.Tensor] = {}
 
     # params ------------------------------------------------------------- #
     def _path(self, key: str) -> str:
@@ -109,18 +124,29 @@ class SnapshotStore:
         torch.save(state, tmp)
         os.replace(tmp, path)
         if torch.cuda.is_available():
-            self.host[key] = {k: torch.empty_like(v, device="cpu", pin_memory=True).copy_(v)
+            offsets, size = {}, 0
+            for k, v in state.items():
+                offsets[k] = size
+                size += -(-v.numel() * v.element_size() // _ALIGN) * _ALIGN
+            image = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            self.host[key] = {k: _view(image, offsets[k], v).copy_(v)
                               for k, v in state.items()}
+            self._images[key] = image
         return os.path.getsize(path)
 
     def load_params(self, key: str, device: Union[str, torch.device]) -> Dict[str, torch.Tensor]:
-        """The snapshot's tensors on ``device``.  Copies from the pinned host
-        copy are asynchronous: the caller synchronises before it reads them."""
-        src = self.host.get(key)
-        if src is None:
+        """The snapshot's tensors on ``device``.  The copy from the pinned
+        host image is asynchronous: the caller synchronises before it reads
+        the tensors."""
+        image = self._images.get(key)
+        if image is None:
             src = torch.load(self._path(key), weights_only=True, mmap=True,
                              map_location="cpu")
-        return {k: v.to(device, non_blocking=v.is_pinned()) for k, v in src.items()}
+            return {k: v.to(device) for k, v in src.items()}
+        buf = torch.empty_like(image, device=device)
+        buf.copy_(image, non_blocking=True)
+        return {k: _view(buf, v.storage_offset() * v.element_size(), v)
+                for k, v in self.host[key].items()}
 
     # executables ---------------------------------------------------------- #
     def get_executable(self, key: str):
@@ -219,9 +245,9 @@ class InferenceEngine:
                     and self.store.has_params(self.key))
         with t.phase(Phase.DEPS_LOAD):
             if use_snap:
+                state = self.store.load_params(self.key, self.device)  # copy in flight
                 self.params = self.bundle.empty()
-                self.params.load_state_dict(
-                    self.store.load_params(self.key, self.device), assign=True)
+                self.params.load_state_dict(state, assign=True)
             else:
                 gen = torch.Generator(device=self.device).manual_seed(self.seed)
                 self.params = self.bundle.init(gen)

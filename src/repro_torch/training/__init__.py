@@ -1,2 +1,2 @@
-"""Training substrate: the optimizer and checkpointing (the train loop comes
-with the training slice of the port, ROADMAP A6)."""
+"""Training substrate (port of ``repro.training``): the optimizer, the train
+step and loop, and checkpointing."""

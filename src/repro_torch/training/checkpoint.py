@@ -3,8 +3,11 @@ JAX package's that never imports JAX.
 
 The port's format (:func:`save` / :func:`restore`): one array per leaf,
 ``a0``, ``a1``, ..., and ``__meta_json__``, the UTF-8 bytes of a JSON object
-``{"format": FORMAT, "paths": [...], "extra": {...}}`` naming each leaf by
-its dotted path (a ``state_dict`` key).  Nothing is pickled.
+``{"format": FORMAT, "paths": [...], "bfloat16": [...], "extra": {...}}``
+naming each leaf by its dotted path (a ``state_dict`` key).  numpy has no
+bf16: a bf16 tensor is stored as its 16-bit patterns and listed under
+``"bfloat16"``, and :func:`restore` gives it back as a bf16 torch tensor.
+Nothing is pickled.
 
 The JAX package's format (``repro.training.checkpoint.save``): the leaves
 ``a0``... in JAX's flatten order and ``__meta__``, a pickle of
@@ -28,9 +31,18 @@ import numpy as np
 FORMAT = "repro_torch.checkpoint/1"
 
 
+def _is_bf16(x) -> bool:
+    return hasattr(x, "detach") and str(x.dtype) == "torch.bfloat16"
+
+
 def _array(x) -> np.ndarray:
     if hasattr(x, "detach"):                # a torch tensor
-        x = x.detach().cpu().numpy()
+        import torch
+
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)         # the bit patterns
+        x = x.numpy()
     return np.asarray(x)
 
 
@@ -40,7 +52,9 @@ def save(path: str, state: Mapping[str, Any], *, extra: dict = None) -> int:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     paths = list(state)
     arrs = {f"a{i}": _array(state[p]) for i, p in enumerate(paths)}
-    meta = json.dumps({"format": FORMAT, "paths": paths, "extra": extra or {}})
+    meta = json.dumps({"format": FORMAT, "paths": paths,
+                       "bfloat16": [p for p in paths if _is_bf16(state[p])],
+                       "extra": extra or {}})
     with open(path, "wb") as f:
         np.savez(f, __meta_json__=np.frombuffer(meta.encode(), np.uint8), **arrs)
     return os.path.getsize(path)
@@ -53,7 +67,8 @@ def is_reference(path: str) -> bool:
 
 
 def restore(path: str) -> Tuple["OrderedDict[str, np.ndarray]", dict]:
-    """A checkpoint :func:`save` wrote -> (dotted path -> array, extra)."""
+    """A checkpoint :func:`save` wrote -> (dotted path -> array, extra); a
+    leaf saved from a bf16 tensor comes back as a bf16 torch tensor."""
     with np.load(path, allow_pickle=False) as z:
         if "__meta_json__" not in z.files:
             raise ValueError(f"{path}: not a {FORMAT} checkpoint (no __meta_json__); "
@@ -62,6 +77,11 @@ def restore(path: str) -> Tuple["OrderedDict[str, np.ndarray]", dict]:
         if meta.get("format") != FORMAT:
             raise ValueError(f"{path}: format {meta.get('format')!r} != {FORMAT!r}")
         state = OrderedDict((p, z[f"a{i}"]) for i, p in enumerate(meta["paths"]))
+    if meta.get("bfloat16"):
+        import torch
+
+        for p in meta["bfloat16"]:
+            state[p] = torch.from_numpy(state[p]).view(torch.bfloat16)
     return state, meta["extra"]
 
 

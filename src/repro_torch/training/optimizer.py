@@ -76,9 +76,11 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale, grads), gn
 
 
-def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState):
+def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState, decay=None):
     """One AdamW step.  Returns ``(params, state, {"grad_norm", "lr"})``;
-    nothing is updated in place."""
+    nothing is updated in place.  ``decay``, a tree of bools like
+    ``params``, says which leaves take weight decay; by default those of two
+    or more dims (the reference's rule on its own tree)."""
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     step = state.step + 1
     lr = lr_at(cfg, step)
@@ -86,16 +88,18 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState):
     b1t = 1 - torch.pow(cfg.b1, stepf)
     b2t = 1 - torch.pow(cfg.b2, stepf)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, dec):
         g = g.to(torch.float32)
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
         u = (m / b1t) / (torch.sqrt(v / b2t) + cfg.eps)
-        if p.dim() >= 2:
+        if dec:
             u = u + cfg.weight_decay * p.to(torch.float32)
         newp = p.to(torch.float32) - lr * u
         return newp.to(p.dtype), m, v
 
-    out = tree_map(upd, params, grads, state.m, state.v)   # (p, m, v) leaves
+    if decay is None:
+        decay = tree_map(lambda p: p.dim() >= 2, params)
+    out = tree_map(upd, params, grads, state.m, state.v, decay)   # (p, m, v) leaves
     new_p, new_m, new_v = (tree_map(lambda t, i=i: t[i], out) for i in range(3))
     return new_p, OptState(step, new_m, new_v), {"grad_norm": gnorm, "lr": lr}

@@ -479,8 +479,11 @@ def test_snapshot_restores_from_pinned_copy_and_file_agree(cuda, tmp_path):
 
     gen = torch.Generator(device=cuda).manual_seed(0)
     state = {"w": torch.randn((64, 48), generator=gen, device=cuda).bfloat16(),
-             "b": torch.randn((48,), generator=gen, device=cuda),
-             "i": torch.arange(7, device=cuda)}
+             "b": torch.randn((47,), generator=gen, device=cuda),
+             "i": torch.arange(7, device=cuda),
+             "s": torch.tensor(3.5, device=cuda),
+             "m": torch.randn((3, 5), generator=gen, device=cuda) > 0,
+             "t": torch.randn((6, 4), generator=gen, device=cuda).t()}
     store = SnapshotStore(str(tmp_path))
     store.save_params("k", state)
     assert all(t.is_pinned() for t in store.host["k"].values())
@@ -491,6 +494,10 @@ def test_snapshot_restores_from_pinned_copy_and_file_agree(cuda, tmp_path):
         for name, t in got.items():
             assert t.device.type == "cuda" and t.dtype == state[name].dtype
             assert torch.equal(t, state[name]), name
+    # the pinned image restores into one device buffer, each tensor aligned
+    got = store.load_params("k", cuda)
+    assert len({t.untyped_storage().data_ptr() for t in got.values()}) == 1
+    assert all(t.data_ptr() % 256 == 0 for t in got.values())
 
 
 def test_whisper_engine_decodes_past_the_position_table_on_card(cuda, tmp_path):
@@ -540,3 +547,124 @@ def test_fuse_chain_graph_equals_its_eager_chain_on_card(cuda):
             gen, _ = eng.serve(want, decode_steps=3)
             want = np.concatenate([want, gen], axis=1)[:, -16:]
         np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------------- #
+# the flash backward kernel and the guard on the kernels with no backward
+# --------------------------------------------------------------------------- #
+BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+FLASH_BWD_CASES = FLASH_CASES[:8] + [
+    (1, 40, 40, 4, 2, 64, True, None, 16),    # keys start at 16: rows 0-15 see none
+    (2, 16, 16, 4, 4, 8, True, None, 0),      # the forecaster's head shape
+    (1, 24, 24, 32, 8, 120, True, None, 0),   # h2o-danube-3's D 120
+]
+
+
+def _bwd_inputs(cuda, case, dtype, seed):
+    b, sq, skv, hq, hkv, d, causal, window = case[:8]
+    shift = case[8] if len(case) > 8 else 0
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, out, dout = (torch.randn((b, sq, hq, d), generator=g, device=cuda).to(DTYPES[dtype])
+                    for _ in range(3))
+    k, v = (torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(DTYPES[dtype])
+            for _ in range(2))
+    q_pos = torch.arange(sq, device=cuda, dtype=torch.int32) + (skv - sq)
+    kv_pos = torch.arange(skv, device=cuda, dtype=torch.int32) + shift
+    args = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
+    out = tflash.flash_attention_hopper(q, k, v, **args)
+    return (q, k, v, out, dout), args
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_matches_plain_on_card(cuda, case, dtype):
+    tensors, args = _bwd_inputs(cuda, case, dtype, 7)
+    before = tflash.bwd_launches
+    got = tflash.flash_attention_bwd_hopper(*tensors, **args)
+    assert tflash.bwd_launches == before + tflash.BWD_KERNELS
+    want = tflash.flash_attention_bwd_plain(*tensors, **args)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        out = a.float().cpu().numpy()
+        assert np.isfinite(out).all(), name
+        np.testing.assert_allclose(out, w.float().cpu().numpy(), err_msg=name,
+                                   **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_is_deterministic_on_card(cuda, dtype):
+    tensors, args = _bwd_inputs(cuda, (2, 256, 256, 32, 8, 64, True, None), dtype, 8)
+    first = tflash.flash_attention_bwd_hopper(*tensors, **args)
+    second = tflash.flash_attention_bwd_hopper(*tensors, **args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_autograd_runs_the_backward_kernel_on_card(cuda):
+    from repro_torch.kernels import ops
+
+    (q, k, v, _, dout), args = _bwd_inputs(cuda, FLASH_CASES[4], "float32", 9)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = tflash.launches, tflash.bwd_launches
+    out = ops.flash_attention(*leaves, **args)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert (tflash.launches - f0, tflash.bwd_launches - b0) == (1, tflash.BWD_KERNELS)
+    want = tflash.flash_attention_bwd_plain(q, k, v, out.detach(), dout, **args)
+    for a, w in zip(grads, want):
+        torch.testing.assert_close(a, w, **BWD_TOL["float32"])
+
+
+def test_kernels_with_no_backward_refuse_grad_on_card(cuda):
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    u = torch.randn((1, 8, 16), generator=g, device=cuda, requires_grad=True)
+    delta = torch.rand((1, 8, 16), generator=g, device=cuda)
+    A = -torch.rand((16, 4), generator=g, device=cuda)
+    B, C = (torch.randn((1, 8, 4), generator=g, device=cuda) for _ in range(2))
+    D, h0 = torch.ones(16, device=cuda), torch.zeros((1, 16, 4), device=cuda)
+    with pytest.raises(RuntimeError, match="ssm_scan has no backward kernel"):
+        ops.ssm_scan(u, delta, A, B, C, D, h0)
+    with torch.no_grad():
+        ops.ssm_scan(u, delta, A, B, C, D, h0)        # serving is untouched
+    q = torch.randn((1, 4, 64), generator=g, device=cuda, requires_grad=True)
+    kc = torch.randn((1, 32, 2, 64), generator=g, device=cuda)
+    with pytest.raises(RuntimeError, match="decode_attention has no backward kernel"):
+        ops.decode_attention(q, kc, kc, torch.ones((1, 32), dtype=torch.bool, device=cuda))
+    cs = _chip_smoke()
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in cs.kernel_order(cs.random_tables(np.random.default_rng(0)))]
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="cluster_step has no backward kernel"):
+        tcluster.cluster_sim_hopper(*args)
+
+
+def test_smoke_train_step_card_matches_cpu(cuda):
+    """One SMOKE granite-3-2b train step on the card (flash forward and
+    backward kernels) against the same step on the CPU: loss, gradient norm
+    and the updated parameters."""
+    from repro_torch.config import InputShape
+    from repro_torch.data import pipeline
+    from repro_torch.models import registry
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step, param_tree, to_device
+
+    host = registry.build_arch("granite-3-2b", smoke=True, max_seq=32, device="cpu")
+    card = registry.build_arch("granite-3-2b", smoke=True, max_seq=32, device=cuda)
+    p_host = host.init(torch.Generator().manual_seed(0))
+    p_card = card.empty()
+    p_card.load_state_dict({k: v.to(cuda) for k, v in p_host.state_dict().items()},
+                           assign=True)
+    batch = next(pipeline.batches(host.cfg, InputShape("t", 32, 2, "train")))
+    opt = OptimizerConfig(lr=3e-3, warmup_steps=1, total_steps=1, eps=1e-3)
+    f0, b0 = tflash.launches, tflash.bwd_launches
+    _, _, mc = make_train_step(card, opt)(p_card, init_opt_state(param_tree(p_card)),
+                                          to_device(batch, cuda))
+    n = host.cfg.num_layers
+    assert (tflash.launches - f0, tflash.bwd_launches - b0) == (n, tflash.BWD_KERNELS * n)
+    _, _, mh = make_train_step(host, opt)(p_host, init_opt_state(param_tree(p_host)),
+                                          to_device(batch, torch.device("cpu")))
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mc[key]), float(mh[key]), rtol=1e-5, atol=1e-5)
+    for name, p in p_card.state_dict().items():
+        np.testing.assert_allclose(p.cpu().numpy(), p_host.state_dict()[name].numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)

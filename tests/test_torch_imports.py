@@ -74,7 +74,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.core.predictors.transformer",
                  "repro_torch.core.predictors.lstm",
                  # the encoder-decoder and vision families' slice
-                 "repro_torch.models.encdec", "repro_torch.serving.kvcache"):
+                 "repro_torch.models.encdec", "repro_torch.serving.kvcache",
+                 # the training slice
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.training.train_loop", "repro_torch.launch.train"):
         assert name in got["modules"]
 
 
