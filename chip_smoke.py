@@ -7,7 +7,7 @@ Phases, each fatal on failure:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds every hand kernel from src/repro_torch/kernels/csrc
                (ptxas registers and spills; HGMMA / UTMALDG counts in the flash
-               library's SASS);
+               forward's and backward's SASS, the backward's gated above 0);
   3. kernels — each hand kernel against its plain torch version on the card at
                the attention head shapes of granite-3-2b, the Jamba period,
                h2o-danube-3 (D 120) and starcoder2 (48/4 heads, D 128), with
@@ -97,25 +97,29 @@ Phases, each fatal on failure:
                (bf16, max_seq 512, 16 steps a stage) as one CUDA graph: its
                tokens against the stages run eagerly one after another, the
                capture's seconds, a replay's ms and the eager chain's.
- 18. flash-bwd — the flash backward kernel (csrc/flash_attention_bwd.cu)
-               against its plain version on the kernel phase's flash cases,
-               granite's training shape (B 8, S 256), the forecaster's (B 64,
-               S 16, 4/4, D 8) and a prefill whose first 40 rows see no valid
-               key, fp32 (1e-4) and bf16 (5e-2), each twice and bit-equal;
-               the backward and the forward timed at granite's training shape
-               (bf16) and the forecaster's (fp32) beside the plain versions and
-               scaled_dot_product_attention's (a yardstick only);
+ 18. flash-bwd — the flash forward's row statistics (m, 1 / l; STATS_TOL)
+               against its plain version's, its output with them bit-equal
+               to its output without; the flash backward kernel
+               (csrc/flash_attention_bwd.cu, fed those statistics) against
+               its plain version on the kernel phase's flash cases, granite's
+               training shape (B 8, S 256), the forecaster's (B 64, S 16, 4/4,
+               D 8) and a prefill whose first 40 rows see no valid key, fp32
+               (1e-4) and bf16 (5e-2), each twice and bit-equal; the backward
+               and the forward (with and without statistics) timed at
+               granite's training shape (bf16) and the forecaster's (fp32)
+               beside the plain versions, scaled_dot_product_attention's (a
+               yardstick only) and the simple SIMT backward it replaced;
  19. train-grad — full-width granite-3-2b in fp32 at B 8 x S 256: bundle.loss
                and every leaf's gradient through the hand kernels (flash 2 a
-               layer under remat, the backward 3 kernels a layer) against the
-               oracle attention on the same weights (loss 1e-5, grad norm 1e-4
-               relative, every leaf within 1e-3 of its largest gradient);
+               layer under remat, the backward BWD_KERNELS a layer) against
+               the oracle attention on the same weights (loss 1e-5, grad norm
+               1e-4 relative, every leaf within 1e-3 of its largest gradient);
  20. train   — 10 bf16 optimizer steps of full-width granite-3-2b through
                launch/train.py's main at its defaults (B 8 x S 256): every
                loss, ms per step, tokens/s, peak memory, exact launches
-               (forward 80 a step, backward 120 kernels a step), the losses
-               finite and falling; one more step traced (busy share, kernels
-               by time);
+               (forward 80 a step, backward BWD_KERNELS x 40 kernels a step),
+               the losses finite and falling; one more step traced (busy
+               share, kernels by time);
  21. forecaster-train — 10 steps of the forecaster's train step on the card
                and on the CPU from one set of weights (losses within 1e-4),
                then train_forecaster on the card with its launches counted;
@@ -290,9 +294,9 @@ TIMED = {("flash_attention", "granite", "prefill"), ("flash_attention", "jamba",
          ("decode_attention", "internvl2", "decode")}
 
 
-def _sass_counts():
-    """HGMMA and UTMALDG instructions in the flash library's SASS: evidence that
-    the bf16 kernel reached the tensor cores and TMA (None where cuobjdump is
+def _sass_counts(name: str):
+    """HGMMA and UTMALDG instructions in library ``name``'s SASS: evidence that
+    its bf16 kernels reached the tensor cores and TMA (None where cuobjdump is
     missing)."""
     import shutil
 
@@ -301,7 +305,7 @@ def _sass_counts():
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).with_name("cuobjdump"))
     if not Path(tool).exists():
         return None
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("flash_attention"))],
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, timeout=120).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
 
@@ -1003,10 +1007,11 @@ def batch_phase(torch, dev):
     return launches, timed
 
 
-def _profile_call(torch, wall_s, call, label, top=4):
+def _profile_call(torch, wall_s, call, label, top=4, also=()):
     """Device busy share of one ``call()``: the device time from a traced call
     over the wall time of an unprofiled one (the first trace also pays the
-    profiler's start-up); the device activities and the top kernels."""
+    profiler's start-up); the device activities, the top kernels and every
+    kernel whose name holds one of ``also``, with its launches."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -1016,10 +1021,12 @@ def _profile_call(torch, wall_s, call, label, top=4):
         call()
         torch.cuda.synchronize()
     by_name = defaultdict(float)
+    count = defaultdict(int)
     n = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
+            count[e.name] += 1
             n += 1
     busy = sum(by_name.values())
     if busy == 0:
@@ -1030,6 +1037,9 @@ def _profile_call(torch, wall_s, call, label, top=4):
           f"activities")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"profile   {us / 1e3:9.3f} ms  {name[:90]}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        if any(part in name for part in also):
+            print(f"profile   {us / 1e3:9.3f} ms  x{count[name]}  {name[:90]}")
 
 
 def _spot_check(torch):
@@ -1863,6 +1873,14 @@ def chain_phase(torch):
 # --------------------------------------------------------------------------- #
 
 BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# the forward's row statistics against the plain version's: fp32 sums in
+# another order; in bf16 also ex2.approx (2^-22 relative) and m's trip through
+# the kernel's log2 domain
+STATS_TOL = 1e-4
+# the simple SIMT backward (three launches, no tensor cores) that the
+# tensor-core kernels replaced, at the timed shapes (this script on an H100
+# 80GB HBM3 at 700.00 W), printed beside this run's
+SIMT_BWD_MS = {"granite": 0.9681, "forecaster": 0.0341}
 TRAIN_STEPS = 10
 TRAIN_SHAPE = (8, 256)         # launch/train.py's default batch and seq
 GRAD_TOL = dict(loss=1e-5, norm=1e-4, leaf=1e-3)
@@ -1881,11 +1899,14 @@ BWD_TIMED = {("granite", "train", "bfloat16"), ("forecaster", "train", "float32"
 
 
 def flash_bwd_phase(torch, dev):
-    """The flash backward kernel against its plain version on every case of
-    BWD_CASES, fp32 and bf16, two calls bit-equal; at granite's training
-    shape (bf16) and the forecaster's (fp32) the backward and the forward
-    timed by graph replay beside the plain versions and, as a yardstick,
-    scaled_dot_product_attention's forward and backward."""
+    """On every case of BWD_CASES, fp32 and bf16: the forward's row statistics
+    against its plain version's and its output with them bit-equal to its
+    output without; the flash backward kernel against its plain version, two
+    calls bit-equal.  At granite's training shape (bf16) and the
+    forecaster's (fp32) the backward and the forward (the training path's,
+    with statistics, and serving's) timed by graph replay beside the plain
+    versions and, as a yardstick, scaled_dot_product_attention's forward and
+    backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels.ref import attention_mask
@@ -1903,19 +1924,30 @@ def flash_bwd_phase(torch, dev):
             q_pos = torch.arange(sq, device=dev, dtype=torch.int32) + (skv - sq if causal else 0)
             kv_pos = torch.arange(skv, device=dev, dtype=torch.int32) + shift
             args = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
-            out = kf.flash_attention_hopper(q, k, v, **args)
-            got = kf.flash_attention_bwd_hopper(q, k, v, out, dout, **args)
-            again = kf.flash_attention_bwd_hopper(q, k, v, out, dout, **args)
-            want = kf.flash_attention_bwd_plain(q, k, v, out, dout, **args)
+            serving = kf.flash_attention_hopper(q, k, v, **args)
+            out, m, linv = kf.flash_attention_hopper(q, k, v, **args, stats=True)
+            _, pm, pl = kf.flash_attention_plain(q, k, v, **args, stats=True)
+            got = kf.flash_attention_bwd_hopper(q, k, v, out, dout, m, linv, **args)
+            again = kf.flash_attention_bwd_hopper(q, k, v, out, dout, m, linv, **args)
+            want = kf.flash_attention_bwd_plain(q, k, v, out, dout, m, linv, **args)
             torch.cuda.synchronize()
+            stat_errs = [_close(a, w, STATS_TOL) for a, w in ((m, pm), (linv, pl))]
+            same_out = torch.equal(out, serving)
             errs = [_close(g, w, BWD_TOL[dtype]) for g, w in zip(got, want)]
             same = all(torch.equal(a, c) for a, c in zip(got, again))
             ok = all(o for _, o in errs) and same and all(torch.isfinite(g.float()).all()
                                                          for g in got)
+            stats_ok = same_out and all(o for _, o in stat_errs)
             print(f"kernel flash_attention_bwd {dtype} {shape} {hq}/{hkv} D={d} {name} B={b} "
                   f"Sq={sq} Skv={skv} window={window} causal={causal} keys from {shift}: "
+                  f"forward stats max rel err m {stat_errs[0][0]:.2e} linv {stat_errs[1][0]:.2e} "
+                  f"(tol {STATS_TOL}), out bit-equal to serving's {same_out}; "
                   f"max_abs_err dq {errs[0][0]:.3e} dk {errs[1][0]:.3e} dv {errs[2][0]:.3e} "
-                  f"tol={BWD_TOL[dtype]} bit-equal twice {same} {'ok' if ok else 'FAIL'}")
+                  f"tol={BWD_TOL[dtype]} bit-equal twice {same} "
+                  f"{'ok' if ok and stats_ok else 'FAIL'}")
+            if not stats_ok:
+                _fail(f"flash_attention {dtype} {shape} {name}: the row statistics disagree "
+                      f"with the plain version's, or the output moved with them on")
             if not ok:
                 _fail(f"flash_attention_bwd {dtype} {shape} {name} disagrees with its plain "
                       f"version or is not deterministic")
@@ -1925,15 +1957,17 @@ def flash_bwd_phase(torch, dev):
             pairs *= b * hq
             label = f"B {b}, S {sq}, {hq}/{hkv} heads, D {d}, causal {causal}"
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            f = _attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, **args),
-                            lambda: kf.flash_attention_plain(q, k, v, **args),
+            # the training path's forward: with the statistics
+            f = _attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, **args, stats=True),
+                            lambda: kf.flash_attention_plain(q, k, v, **args, stats=True),
                             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                                    enable_gqa=True))
             f.update(max_abs_err=_close(out, kf.flash_attention_plain(q, k, v, **args),
                                         KERNEL_TOL[dtype])[0], label=label,
-                     bound=_bound(4.0 * pairs * d, _nbytes(q, k, v, out, q_pos, kv_pos), dtype,
-                                  exps=pairs))
+                     bound=_bound(4.0 * pairs * d, _nbytes(q, k, v, out, m, linv, q_pos, kv_pos),
+                                  dtype, exps=pairs))
             timed[("fwd", shape)] = f
+            serving_ms = _graph_ms(torch, lambda: kf.flash_attention_hopper(q, k, v, **args))
             # SDPA's backward runs on its forward's stream, so a graph holds
             # the two together: its backward is (forward + backward) - forward
             leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
@@ -1944,20 +1978,24 @@ def flash_bwd_phase(torch, dev):
                 return torch.autograd.grad(o, leaves, lib_dout)
 
             def kernel():
-                return kf.flash_attention_bwd_hopper(q, k, v, out, dout, **args)
+                return kf.flash_attention_bwd_hopper(q, k, v, out, dout, m, linv, **args)
 
             fwd_bwd = _graph_ms(torch, sdpa_fwd_bwd)
             t = dict(ms=_graph_ms(torch, kernel),
                      plain_ms=_graph_ms(torch, lambda: kf.flash_attention_bwd_plain(
-                         q, k, v, out, dout, **args)),
+                         q, k, v, out, dout, m, linv, **args)),
                      library_ms=fwd_bwd - f["library_ms"], launch_ms=_time_ms(torch, kernel))
             # dq, dk, dv and the recomputed S, dP: five D-long products a pair
             t.update(max_abs_err=max(e for e, _ in errs), label=label,
-                     bound=_bound(10.0 * pairs * d, _nbytes(q, k, v, out, dout, *got, q_pos,
-                                                            kv_pos), dtype, exps=pairs))
+                     bound=_bound(10.0 * pairs * d, _nbytes(q, k, v, out, dout, m, linv, *got,
+                                                            q_pos, kv_pos), dtype, exps=pairs))
             timed[("bwd", shape)] = t
             print(f"time sdpa forward + backward {dtype} ({shape} {name}) {fwd_bwd:.4f} ms, "
                   f"forward {f['library_ms']:.4f} ms (graph replay)")
+            print(f"time flash_attention_bwd {dtype} ({shape} {name}): {t['ms']:.4f} ms against "
+                  f"the simple SIMT kernel's {SIMT_BWD_MS[shape]:.4f} ms "
+                  f"({SIMT_BWD_MS[shape] / t['ms']:.2f}x); forward with statistics "
+                  f"{f['ms']:.4f} ms, serving's forward (none) {serving_ms:.4f} ms")
             for what, x in (("flash_attention_bwd", t), ("flash_attention", f)):
                 print(f"time {what} {dtype} ({shape} {name}, {label}), device (graph replay): "
                       f"kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, sdpa "
@@ -2010,7 +2048,7 @@ def train_grad_phase(torch, dev):
             worst, worst_name = r, name
     lk, lp = lk.item(), lp.item()
     calls = cfg.num_layers                  # flash calls a forward, one a layer
-    want = ((2 if cfg.remat else 1) * calls, 3 * calls)
+    want = ((2 if cfg.remat else 1) * calls, kf.BWD_KERNELS * calls)
     print(f"train-grad {ARCH} fp32 B {b} x S {s}: loss kernel {lk:.7f} plain {lp:.7f} "
           f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {GRAD_TOL['loss']}); grad norm kernel "
           f"{nk:.6f} plain {np_:.6f} (rel {abs(nk - np_) / np_:.2e}, tol {GRAD_TOL['norm']}); "
@@ -2034,7 +2072,7 @@ def train_phase(torch, dev):
     """TRAIN_STEPS bf16 optimizer steps of full-width granite-3-2b through
     ``python -m repro_torch.launch.train``'s main (batch 8 x seq 256), with
     exact launch counts (flash forward 2 a layer a step under remat, the
-    backward 3 kernels a layer a step), falling finite losses, ms per step,
+    backward BWD_KERNELS a layer a step), falling finite losses, ms per step,
     tokens/s and peak memory; then one more step traced.  Returns the flash
     forward and backward launches of the run."""
     import numpy as np
@@ -2056,7 +2094,7 @@ def train_phase(torch, dev):
     peak = torch.cuda.max_memory_allocated()
     # the forward runs twice a step under remat (again in the backward)
     want = ((2 if cfg.remat else 1) * cfg.num_layers * TRAIN_STEPS,
-            3 * cfg.num_layers * TRAIN_STEPS)
+            kf.BWD_KERNELS * cfg.num_layers * TRAIN_STEPS)
     steady = float(np.mean(res.step_s[1:]))
     print(f"train {ARCH} bf16 B {b} x S {s}, {TRAIN_STEPS} steps through launch/train.py: "
           f"losses {[round(x, 4) for x in res.losses]}")
@@ -2085,7 +2123,7 @@ def train_phase(torch, dev):
     step(params, opt_state, batch)
     torch.cuda.synchronize()
     _profile_call(torch, time.perf_counter() - t0, lambda: step(params, opt_state, batch),
-                  f"{ARCH} train step", top=12)
+                  f"{ARCH} train step", top=12, also=("flash_fwd", "bwd_dq", "bwd_dkdv"))
     del params, opt_state, batch
     _free(torch)
     return launches
@@ -2134,7 +2172,7 @@ def forecaster_train_phase(torch, dev):
     params, res, _, _ = fc.train_forecaster(iter(data), steps=len(data), log_every=0,
                                             log_fn=None, device=dev)
     launches = (kf.launches, kf.bwd_launches)         # read just after it
-    want = (cfg.num_layers * len(data), 3 * cfg.num_layers * len(data))
+    want = (cfg.num_layers * len(data), kf.BWD_KERNELS * cfg.num_layers * len(data))
     print(f"forecaster-train train_forecaster on the card: losses "
           f"{[round(x, 4) for x in res.losses]}; {np.mean(res.step_s[1:]) * 1e3:.2f} ms a step "
           f"after step 1; launches flash forward, backward kernels {launches} (expected {want})")
@@ -2183,7 +2221,7 @@ def smoke_train_phase(torch, dev):
             if not ok:
                 _fail(f"smoke-train {arch}: the card's loss disagrees with the CPU's")
         launches = (kf.launches, kf.bwd_launches)
-        want = (2 * per_step, 2 * 3 * per_step)
+        want = (2 * per_step, 2 * kf.BWD_KERNELS * per_step)
         print(f"smoke-train {arch}: launches flash forward, backward kernels {launches} "
               f"(expected {want})")
         if launches != want:
@@ -2283,9 +2321,13 @@ def main() -> int:
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
         print(f"ptxas {name}: {len(regs)} kernels, registers <= {max(regs, default=0)}, "
               f"spill stores <= {max(spills, default=0)} bytes")
-    sass = _sass_counts()
-    print("sass flash_attention: " + ("not measured (no cuobjdump)" if sass is None else
-                                      ", ".join(f"{op} {n}" for op, n in sass.items())))
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        sass = _sass_counts(lib)
+        print(f"sass {lib}: " + ("not measured (no cuobjdump)" if sass is None else
+                                 ", ".join(f"{op} {n}" for op, n in sass.items())))
+        # the bf16 backward runs on the tensor cores with TMA tiles
+        if lib == "flash_attention_bwd" and (sass is None or min(sass.values()) == 0):
+            _fail(f"sass {lib}: no HGMMA / UTMALDG ({sass})")
 
     from repro_torch.config import get_config
 

@@ -3,10 +3,11 @@ them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, ``build/repro_torch/<name>-<hash>.so`` at the repository root; the
-hash covers the source and its compiler flags (the common ``NVCC_FLAGS`` and
-the source's own ``EXTRA_FLAGS``), so an edited source is rebuilt and an
-unchanged one is loaded as it is.  :func:`build` starts one ``nvcc``
-per missing library, all at once.  A failed build raises; nothing falls back.
+hash covers the source, the shared headers ``csrc/*.cuh`` and its compiler
+flags (the common ``NVCC_FLAGS`` and the source's own ``EXTRA_FLAGS``), so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
+:func:`build` starts one ``nvcc`` per missing library, all at once.  A failed
+build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -54,6 +55,8 @@ def flags(name: str) -> Tuple[str, ...]:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

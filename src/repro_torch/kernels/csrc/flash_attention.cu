@@ -41,6 +41,12 @@
 // same rule: a state that has seen no valid key has m = NEG_INF and weight
 // exactly 0.
 //
+// Asked for them (training: the backward in flash_attention_bwd.cu reads
+// them), both kernels also write each row's max score m and 1 / l, fp32
+// (B, Hq, Sq), in natural units (the bf16 kernel's log2-domain m times ln 2;
+// a row with no valid key keeps m = NEG_INF exactly).  A template flag: the
+// instantiations that serving launches, with no statistics, keep their code.
+//
 // fp32: flash_fwd_simt, the plain-FMA kernel of the first port.  Tensor cores
 // would take fp32 as TF32, which misses the fp32 tolerance (3e-5).  One block
 // per (64-row q tile, q head, batch), 256 threads, four per q row, each with
@@ -57,18 +63,9 @@
 #include <climits>
 #include <cstdint>
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ bool key_valid(int kp, int qp, int causal, int window) {
-  return (!causal || kp <= qp) && (window < 0 || kp > qp - window);
-}
 
 // --------------------------------------------------------------------------
 // fp32: the SIMT kernel
@@ -91,12 +88,14 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 
 // q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); out: (B, Sq, Hq, D); all
 // contiguous fp32.  DP is D rounded up to a multiple of 16 (the shared tiles'
-// row width); chunks of four columns at or past D are zero.
-template <int DP>
+// row width); chunks of four columns at or past D are zero.  STATS: also
+// write each row's max score m and 1 / l to m_out / linv_out (B, Hq, Sq).
+template <int DP, bool STATS>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const int* __restrict__ q_pos,
                const int* __restrict__ kv_pos, float* __restrict__ out,
+               float* __restrict__ m_out, float* __restrict__ linv_out,
                int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
                float scale) {
   constexpr int NC = DP / 16;                // float4 chunks per thread
@@ -230,31 +229,37 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
         *reinterpret_cast<float4*>(orow + c) =
             make_float4(acc[i].x / denom, acc[i].y / denom, acc[i].z / denom, acc[i].w / denom);
     }
+    if (STATS && part == 0) {
+      const size_t idx = (static_cast<size_t>(b) * Hq + h) * Sq + qi;
+      m_out[idx] = m;
+      linv_out[idx] = 1.f / denom;
+    }
   }
 }
 
 template <int DP>
 int launch_simt(const void* q, const void* k, const void* v, const void* q_pos,
-                const void* kv_pos, void* out, int B, int Sq, int Skv, int Hq,
-                int Hkv, int D, int causal, int window, float scale,
+                const void* kv_pos, void* out, void* m, void* linv, int B, int Sq,
+                int Skv, int Hq, int Hkv, int D, int causal, int window, float scale,
                 cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_simt<DP><<<grid, THREADS, 0, stream>>>(
+  auto kernel = m != nullptr ? &flash_fwd_simt<DP, true> : &flash_fwd_simt<DP, false>;
+  kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(q_pos),
-      static_cast<const int*>(kv_pos), static_cast<float*>(out), Sq, Skv, Hq,
-      Hkv, D, causal, window, scale);
+      static_cast<const int*>(kv_pos), static_cast<float*>(out), static_cast<float*>(m),
+      static_cast<float*>(linv), Sq, Skv, Hq, Hkv, D, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_simt(const void* q, const void* k, const void* v, const void* q_pos,
-                  const void* kv_pos, void* out, int B, int Sq, int Skv, int Hq,
-                  int Hkv, int D, int causal, int window, float scale,
+                  const void* kv_pos, void* out, void* m, void* linv, int B, int Sq,
+                  int Skv, int Hq, int Hkv, int D, int causal, int window, float scale,
                   cudaStream_t stream) {
-#define REPRO_SIMT_CASE(DD)                                                      \
-  case DD:                                                                       \
-    return launch_simt<DD>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq, Hkv, D,  \
-                           causal, window, scale, stream);
+#define REPRO_SIMT_CASE(DD)                                                            \
+  case DD:                                                                             \
+    return launch_simt<DD>(q, k, v, q_pos, kv_pos, out, m, linv, B, Sq, Skv, Hq, Hkv,  \
+                           D, causal, window, scale, stream);
   switch ((D + 15) / 16 * 16) {
     REPRO_SIMT_CASE(16)
     REPRO_SIMT_CASE(32)
@@ -274,181 +279,9 @@ int dispatch_simt(const void* q, const void* k, const void* v, const void* q_pos
 // bf16: the tensor-core kernel (TMA + wgmma)
 // --------------------------------------------------------------------------
 
-constexpr int MAX_DEVICES = 64;
 constexpr int BM = 64;     // q rows per block (one wgmma M)
 constexpr int BN = 64;     // kv rows per tile (the score wgmma's N)
 constexpr int WG = 128;    // one warpgroup
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One 4-D box (64 columns x 1 head x 64 rows x 1 batch) into shared memory,
-// completing on the mbarrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptors for tiles of 128-byte rows under the
-// 128-byte swizzle (layout type 1), 8-row groups 1024 bytes apart (SBO).
-// K-major (Q, K): LBO unused.  MN-major (V as a transposed B): LBO is the
-// distance between 64-column panels.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo_bytes) {
-  return static_cast<uint64_t>((saddr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// 2^x on the special-function unit (flush to zero; -inf and NEG_INF give 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory
-// (descriptors), fp32 accumulators; B K-major (trans-b 0).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (bf16 pairs in
-// wgmma's A-fragment order), B from shared memory MN-major (trans-b 1).
-__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers (bf16 pairs in
-// wgmma's A-fragment order), B from shared memory MN-major (trans-b 1).
-__device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-
-template <int DP>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (DP == 64) {
-    wgmma_rs_n64_tb(o, a, db, 1);
-  } else {
-    wgmma_rs_n128_tb(o, a, db, 1);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int DP>
 struct Layout {
@@ -480,12 +313,15 @@ __device__ __forceinline__ void wg_sync(int wg) {   // one warpgroup's named bar
 // out: (B, Sq, Hq, D) bf16.  DP = 64 or 128: D padded to the boxes.  Two
 // warpgroups share the q tile and take alternate kv tiles, each with its own
 // two ring stages and its own running (m, l, O); the second hands its state
-// to the first through shared memory at the end.
-template <int DP>
+// to the first through shared memory at the end.  STATS: also write each
+// row's max score m (natural units, as the fp32 kernel's; NEG_INF kept
+// exactly) and 1 / l to m_out / linv_out (B, Hq, Sq).
+template <int DP, bool STATS>
 __global__ void __launch_bounds__(Layout<DP>::NWG * WG)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const int* __restrict__ q_pos,
                 const int* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ m_out, float* __restrict__ linv_out,
                 int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
                 float scale_log2) {
   using L = Layout<DP>;
@@ -777,6 +613,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const float w1 = fast_exp2(m1 - a1), v1 = fast_exp2(om1 - a1);
     l0 = l0 * w0 + mine[2] * v0;
     l1 = l1 * w1 + mine[3] * v1;
+    if constexpr (STATS) {
+      m0 = a0;
+      m1 = a1;
+    }
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
       o[4 * j] = o[4 * j] * w0 + mine[4 + 4 * j] * v0;
@@ -800,51 +640,28 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up at run time (cudaGetDriverEntryPoint) so
-// that the library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
+  if constexpr (STATS) {
+    // m from the log2 domain back to natural units; a row that saw no valid
+    // key keeps the sentinel exactly
+    if (lane % 4 == 0) {
+      const size_t srow = (static_cast<size_t>(b) * Hq + h) * Sq + q0 + r0;
+      if (live0) {
+        m_out[srow] = m0 <= 0.5f * NEG_INF ? NEG_INF : m0 * LN2;
+        linv_out[srow] = inv0;
+      }
+      if (live1) {
+        m_out[srow + 8] = m1 <= 0.5f * NEG_INF ? NEG_INF : m1 * LN2;
+        linv_out[srow + 8] = inv1;
+      }
+    }
   }
-  return fn;
 }
 
-// A bf16 (B, S, H, D) tensor as the 4-D view (D, H, S, B) with its real
-// strides; boxes of 64 columns x 1 head x 64 rows x 1 batch, 128-byte
-// swizzle, zero fill out of bounds.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(H) * D * 2,
-                                 static_cast<cuuint64_t>(S) * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
-template <int DP>
+template <int DP, bool STATS>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* q_pos,
-                 const void* kv_pos, void* out, int B, int Sq, int Skv, int Hq,
-                 int Hkv, int D, int causal, int window, float scale,
+                 const void* kv_pos, void* out, void* m, void* linv, int B, int Sq,
+                 int Skv, int Hq, int Hkv, int D, int causal, int window, float scale,
                  cudaStream_t stream) {
   // the shared-memory limit is a property of the kernel on each device
   static bool configured[MAX_DEVICES] = {};
@@ -853,7 +670,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* q_pos,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   if (!configured[device]) {
-    err = cudaFuncSetAttribute(flash_fwd_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(flash_fwd_wgmma<DP, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Layout<DP>::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured[device] = true;
@@ -863,10 +680,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* q_pos,
       !make_map(&tv, v, B, Skv, Hkv, D))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((Sq + BM - 1) / BM, Hq, B);
-  flash_fwd_wgmma<DP><<<grid, Layout<DP>::NWG * WG, Layout<DP>::SMEM, stream>>>(
+  flash_fwd_wgmma<DP, STATS><<<grid, Layout<DP>::NWG * WG, Layout<DP>::SMEM, stream>>>(
       tq, tk, tv, static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos),
-      static_cast<__nv_bfloat16*>(out), Sq, Skv, Hq, Hkv, D, causal, window,
-      scale * LOG2E);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(m), static_cast<float*>(linv),
+      Sq, Skv, Hq, Hkv, D, causal, window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -876,24 +693,28 @@ extern "C" {
 
 // Returns the CUDA error of the launch (0 on success).  dtype: 0 fp32 (the
 // SIMT kernel), 1 bf16 (the tensor-core kernel).  window < 0 means no
-// sliding window.  D: a multiple of 8 from 8 to 128.
+// sliding window.  D: a multiple of 8 from 8 to 128.  m, linv: null (serving),
+// or fp32 (B, Hq, Sq) buffers for each row's max score and 1 / l (training:
+// the backward reads them); both or neither.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        const void* q_pos, const void* kv_pos, void* out,
-                        int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                        const void* q_pos, const void* kv_pos, void* out, void* m,
+                        void* linv, int B, int Sq, int Skv, int Hq, int Hkv, int D,
                         int causal, int window, float scale, int dtype,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D < 8 || D > 128 || D % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0)
+  if (D < 8 || D > 128 || D % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      (m == nullptr) != (linv == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_simt(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq, Hkv, D,
+    return dispatch_simt(q, k, v, q_pos, kv_pos, out, m, linv, B, Sq, Skv, Hq, Hkv, D,
                          causal, window, scale, st);
   if (dtype == 1) {
-    if (D <= 64)
-      return launch_wgmma<64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq, Hkv, D,
-                              causal, window, scale, st);
-    return launch_wgmma<128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq, Hkv, D,
-                             causal, window, scale, st);
+#define REPRO_WGMMA(DD, ST)                                                                \
+  launch_wgmma<DD, ST>(q, k, v, q_pos, kv_pos, out, m, linv, B, Sq, Skv, Hq, Hkv, D, causal, \
+                       window, scale, st)
+    if (D <= 64) return m == nullptr ? REPRO_WGMMA(64, false) : REPRO_WGMMA(64, true);
+    return m == nullptr ? REPRO_WGMMA(128, false) : REPRO_WGMMA(128, true);
+#undef REPRO_WGMMA
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

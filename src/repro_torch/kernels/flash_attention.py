@@ -11,10 +11,12 @@ wgmma products), fp32 on the plain-FMA kernel (tensor cores would round fp32
 to TF32).  :func:`shape_error` is the shape rule of both, and of the
 backward, pure Python, so the CPU tests can hold every model config to it.
 
-The backward (:func:`flash_attention_bwd_hopper`) is three SIMT launches a
-call: each row's softmax statistics, then dk / dv, then dq, fp32
-accumulation, no atomics (two calls agree bit for bit).  It recomputes the
-statistics itself, so the forward kernel stays as serving runs it.
+The backward (:func:`flash_attention_bwd_hopper`) is two launches a call,
+dq (with Dr = rowsum(dO * O)) then dk / dv: bf16 on the tensor cores, fp32
+on the FMA units, fp32 accumulation, no atomics (two calls agree bit for
+bit).  It reads each row's softmax statistics (max score m and 1 / l), which
+the forward writes when asked (``stats=True``, what :class:`FlashAttention`
+asks for); serving asks for none and runs the forward as it was.
 """
 from __future__ import annotations
 
@@ -28,24 +30,27 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF, attention_mask
 
 launches = 0       # forward kernel launches; chip_smoke.py resets and reads it
-bwd_launches = 0   # backward kernel launches, three a call
+bwd_launches = 0   # backward kernel launches, BWD_KERNELS a call
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _I, _I, ctypes.c_float, _I, _P)}
+_SIGNATURES = {"flash_attention_fwd": (_P,) * 8 + (_I,) * 8 + (ctypes.c_float, _I, _P)}
 _BWD_SIGNATURES = {"flash_attention_bwd": (_P,) * 13 + (_I,) * 8
                    + (ctypes.c_float, _I, _P)}
-BWD_KERNELS = 3    # launches a backward call: statistics, dk / dv, dq
+BWD_KERNELS = 2    # launches a backward call: dq (and Dr), then dk / dv
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 _GRID_YZ = 65535          # CUDA's limit on gridDim.y and gridDim.z
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None, q_pos, kv_pos):
+                          window: Optional[int] = None, q_pos, kv_pos,
+                          stats: bool = False):
     """Masked softmax attention in fp32, grouped-query, cast back to q.dtype.
 
     q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D); q_pos (Sq,), kv_pos (Skv,).
+    With ``stats``, returns ``(out, m, linv)``: each row's masked max score m
+    (NEG_INF for a row with no valid key) and the reciprocal of its sum of
+    exp(s - m), fp32 (B, Hq, Sq), the numbers the kernels write.
     """
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
@@ -55,17 +60,24 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+    out = out.reshape(b, sq, hq, d).to(q.dtype)
+    if not stats:
+        return out
+    m = s.amax(-1)                                       # (b, hkv, g, sq)
+    linv = 1.0 / torch.exp(s - m[..., None]).sum(-1)
+    return out, m.reshape(b, hq, sq), linv.reshape(b, hq, sq)
 
 
-def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
+def flash_attention_bwd_plain(q, k, v, out, dout, m, linv, *, causal: bool = True,
                               window: Optional[int] = None, q_pos, kv_pos):
     """(dq, dk, dv) of :func:`flash_attention_plain` for the output gradient
     ``dout``, in fp32 torch, cast back to q.dtype.
 
     ``out`` is the forward's output as stored (q.dtype): ``Dr = rowsum(dO * O)``
-    is taken from it, as the kernel does.  A masked score passes no gradient;
-    a row with no valid key weights every key by 1 / Skv in dv.
+    is taken from it, and P = exp(s - m) * linv from the forward's statistics
+    ``m``, ``linv`` (B, Hq, Sq), as the kernel does.  A masked score passes no
+    gradient; a row with no valid key (m = NEG_INF) weights every key by
+    1 / Skv in dv.
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -76,7 +88,8 @@ def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
     do = dout.float().reshape(b, sq, hkv, g, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kf)
     mask = attention_mask(q_pos, kv_pos, causal=causal, window=window)
-    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    mf = m.float().reshape(b, hkv, g, sq, 1)
+    p = torch.exp(torch.where(mask, s, NEG_INF) - mf) * linv.float().reshape(b, hkv, g, sq, 1)
     dr = (do * out.float().reshape(b, sq, hkv, g, d)).sum(-1)           # (b, q, h, g)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
@@ -146,40 +159,49 @@ def _check(q, k, v, q_pos, kv_pos, window):
 
 
 def flash_attention_hopper(q, k, v, *, causal: bool = True,
-                           window: Optional[int] = None, q_pos, kv_pos):
-    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+                           window: Optional[int] = None, q_pos, kv_pos,
+                           stats: bool = False):
+    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D), or with
+    ``stats`` ``(out, m, linv)`` as :func:`flash_attention_plain` gives them.
 
     A CUDA tensor goes to the hand kernel, a CPU tensor to the plain version.
+    The kernel writes the statistics only when asked: the instantiation that
+    serving launches is the one without them.
     """
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_pos=q_pos, kv_pos=kv_pos)
+                                     q_pos=q_pos, kv_pos=kv_pos, stats=stats)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, q_pos, kv_pos, window)
     lib = library()
     b, sq, hq, d = q.shape
     out = torch.empty_like(q)
+    m = linv = None
+    if stats:
+        m, linv = torch.empty((2, b, hq, sq), dtype=torch.float32, device=q.device)
     code = _build.call(
         q.device, lib.flash_attention_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(), b, sq, k.shape[1], hq,
-        k.shape[2], d, int(causal), -1 if window is None else int(window),
-        1.0 / (d ** 0.5), _DTYPES[q.dtype])
+        q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
+        None if m is None else m.data_ptr(), None if linv is None else linv.data_ptr(),
+        b, sq, k.shape[1], hq, k.shape[2], d, int(causal),
+        -1 if window is None else int(window), 1.0 / (d ** 0.5), _DTYPES[q.dtype])
     _build.check(lib, "flash_attention", code)
     launches += 1
-    return out
+    return (out, m, linv) if stats else out
 
 
-def flash_attention_bwd_hopper(q, k, v, out, dout, *, causal: bool = True,
+def flash_attention_bwd_hopper(q, k, v, out, dout, m, linv, *, causal: bool = True,
                                window: Optional[int] = None, q_pos, kv_pos):
-    """(dq, dk, dv) of the forward for ``dout``; ``out`` is the forward's
-    output.  A CUDA tensor goes to the hand kernel (three launches), a CPU
-    tensor to :func:`flash_attention_bwd_plain`."""
+    """(dq, dk, dv) of the forward for ``dout``; ``out``, ``m`` and ``linv``
+    are what the forward gave with ``stats=True``.  A CUDA tensor goes to the
+    hand kernel (BWD_KERNELS launches), a CPU tensor to
+    :func:`flash_attention_bwd_plain`."""
     global bwd_launches
     args = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, dout, **args)
+        return flash_attention_bwd_plain(q, k, v, out, dout, m, linv, **args)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, q_pos, kv_pos, window)
@@ -188,14 +210,19 @@ def flash_attention_bwd_hopper(q, k, v, out, dout, *, causal: bool = True,
             raise ValueError(f"{name} must match q: {tuple(t.shape)} {t.dtype} on {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    lib = bwd_library()
     b, sq, hq, d = q.shape
+    for name, t in (("m", m), ("linv", linv)):
+        if t.shape != (b, hq, sq) or t.dtype != torch.float32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 (B, Hq, Sq) on {q.device}: "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    lib = bwd_library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    m, linv, dr = torch.empty((3, b, hq, sq), dtype=torch.float32, device=q.device)
+    dr = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     code = _build.call(
         q.device, lib.flash_attention_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), m.data_ptr(), linv.data_ptr(),
+        m.data_ptr(), linv.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dr.data_ptr(), b, sq, k.shape[1], hq, k.shape[2], d, int(causal),
         -1 if window is None else int(window), 1.0 / (d ** 0.5), _DTYPES[q.dtype])
     _build.check(lib, "flash_attention_bwd", code)
@@ -204,23 +231,23 @@ def flash_attention_bwd_hopper(q, k, v, out, dout, *, causal: bool = True,
 
 
 class FlashAttention(torch.autograd.Function):
-    """Flash attention with a gradient: the forward wrapper, then the
-    backward wrapper on what it saved (q, k, v, the output and the
-    positions; recomputing the forward under activation checkpointing
-    changes none of them)."""
+    """Flash attention with a gradient: the forward wrapper with its row
+    statistics, then the backward wrapper on what it saved (q, k, v, the
+    output, the statistics and the positions; the forward is deterministic,
+    so recomputing it under activation checkpointing changes none of them)."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, causal, window):
-        out = flash_attention_hopper(q, k, v, causal=causal, window=window,
-                                     q_pos=q_pos, kv_pos=kv_pos)
-        ctx.save_for_backward(q, k, v, out, q_pos, kv_pos)
+        out, m, linv = flash_attention_hopper(q, k, v, causal=causal, window=window,
+                                              q_pos=q_pos, kv_pos=kv_pos, stats=True)
+        ctx.save_for_backward(q, k, v, out, m, linv, q_pos, kv_pos)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, q_pos, kv_pos = ctx.saved_tensors
+        q, k, v, out, m, linv, q_pos, kv_pos = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_hopper(
-            q, k, v, out, dout.contiguous(), causal=ctx.causal, window=ctx.window,
+            q, k, v, out, dout.contiguous(), m, linv, causal=ctx.causal, window=ctx.window,
             q_pos=q_pos, kv_pos=kv_pos)
         return dq, dk, dv, None, None, None, None

@@ -1,9 +1,12 @@
 """The gradients the port trains with, against the JAX package's on the CPU.
 
-* Flash attention: ``flash_attention_bwd_plain`` (the plain version of the
-  hand backward kernel, and what ``FlashAttention.backward`` runs on a CPU
-  tensor) against ``jax.vjp`` of ``repro.kernels.ops._flash_reference`` (what
-  the JAX package differentiates when it trains) and against
+* Flash attention: the plain forward's row statistics (m, 1 / l) rebuild
+  the softmax that jnp computes from the same inputs, masks and NEG_INF
+  sentinel (1e-5: fp32 sums in another order); ``flash_attention_bwd_plain``
+  (the plain version of the hand backward kernel, and what
+  ``FlashAttention.backward`` runs on a CPU tensor), fed those statistics,
+  against ``jax.vjp`` of ``repro.kernels.ops._flash_reference`` (what the
+  JAX package differentiates when it trains) and against
   ``torch.autograd.grad`` of ``flash_attention_plain``, on
   ``test_torch_kernels.py``'s cases plus rows that see no valid key.
   Tolerance 1e-4 in fp32 (both sides are fp32 arithmetic in another order)
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from repro.kernels.ops import _flash_reference
+from repro.kernels.ref import NEG_INF
 from repro.models import layers as jlayers
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops
@@ -58,6 +62,46 @@ def _np(x):
     return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
+STATS_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_forward_statistics_rebuild_the_reference_softmax(case, dtype):
+    """exp(s - m) * linv from the plain forward's statistics is jnp's softmax
+    of the masked scores; a row with no valid key has m = NEG_INF exactly and
+    weights each key by 1 / Skv; asking for the statistics leaves the output
+    as it was."""
+    (jq, jk, _, _), (tq, tk, tv, _), (q_pos, kv_pos), mode = _inputs(case, dtype, 6)
+    b, sq, skv, hq, hkv, d = case[:6]
+    g = hq // hkv
+    mask = np.ones((sq, skv), bool)
+    if mode["causal"]:
+        mask &= kv_pos[None, :] <= q_pos[:, None]
+    if mode["window"] is not None:
+        mask &= kv_pos[None, :] > q_pos[:, None] - mode["window"]
+    js = jnp.einsum("bqhgd,bkhd->bhgqk",
+                    jq.astype(jnp.float32).reshape(b, sq, hkv, g, d) * (1.0 / d ** 0.5),
+                    jk.astype(jnp.float32))
+    js = jnp.where(jnp.asarray(mask)[None, None, None], js, NEG_INF)
+    want_p = np.asarray(jax.nn.softmax(js, axis=-1)).reshape(b, hq, sq, skv)
+    want_m = np.asarray(js.max(axis=-1)).reshape(b, hq, sq)
+
+    pos = dict(q_pos=torch.from_numpy(q_pos), kv_pos=torch.from_numpy(kv_pos))
+    out, m, linv = tflash.flash_attention_plain(tq, tk, tv, **mode, **pos, stats=True)
+    assert m.shape == linv.shape == (b, hq, sq) and m.dtype == linv.dtype == torch.float32
+    assert torch.equal(out, tflash.flash_attention_plain(tq, tk, tv, **mode, **pos))
+    ts = torch.einsum("bqhgd,bkhd->bhgqk",
+                      tq.float().reshape(b, sq, hkv, g, d) * (1.0 / d ** 0.5), tk.float())
+    ts = torch.where(torch.from_numpy(mask), ts, NEG_INF).reshape(b, hq, sq, skv)
+    got_p = torch.exp(ts - m[..., None]) * linv[..., None]
+    np.testing.assert_allclose(got_p.numpy(), want_p, **STATS_TOL)
+    np.testing.assert_allclose(m.numpy(), want_m, **STATS_TOL)
+    unseen = ~mask.any(axis=1)
+    assert (m.numpy()[:, :, unseen] == NEG_INF).all()
+    np.testing.assert_allclose(linv.numpy()[:, :, unseen], 1.0 / skv, rtol=1e-6)
+
+
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_backward_matches_jax_vjp(case, dtype):
@@ -66,9 +110,9 @@ def test_flash_backward_matches_jax_vjp(case, dtype):
         q, k, v, q_pos=jnp.asarray(q_pos), kv_pos=jnp.asarray(kv_pos), **mode), jq, jk, jv)
     want = vjp(jdo)
     pos = dict(q_pos=torch.from_numpy(q_pos), kv_pos=torch.from_numpy(kv_pos))
-    tout = tflash.flash_attention_plain(tq, tk, tv, **mode, **pos)
+    tout, tm, tl = tflash.flash_attention_plain(tq, tk, tv, **mode, **pos, stats=True)
     np.testing.assert_allclose(_np(tout), _np(jout), **TOL[dtype])
-    got = tflash.flash_attention_bwd_plain(tq, tk, tv, tout, tdo, **mode, **pos)
+    got = tflash.flash_attention_bwd_plain(tq, tk, tv, tout, tdo, tm, tl, **mode, **pos)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == tq.dtype
         np.testing.assert_allclose(_np(g), _np(w), err_msg=name, **TOL[dtype])
@@ -94,8 +138,9 @@ def test_rows_with_no_valid_key_spread_dv_evenly():
                                    (b, sq, hq, d)))
     pos = dict(q_pos=torch.arange(sq, dtype=torch.int32),
                kv_pos=torch.arange(skv, dtype=torch.int32) + 100)
-    out = tflash.flash_attention_plain(q, k, v, **pos)
-    dq, dk, dv = tflash.flash_attention_bwd_plain(q, k, v, out, out_grad, **pos)
+    out, m, linv = tflash.flash_attention_plain(q, k, v, **pos, stats=True)
+    assert (m == NEG_INF).all()
+    dq, dk, dv = tflash.flash_attention_bwd_plain(q, k, v, out, out_grad, m, linv, **pos)
     assert torch.equal(dq, torch.zeros_like(dq)) and torch.equal(dk, torch.zeros_like(dk))
     want = out_grad.sum(1, keepdim=True).expand(b, skv, hq, d) / skv
     torch.testing.assert_close(dv, want, rtol=1e-6, atol=1e-6)

@@ -553,26 +553,47 @@ def test_fuse_chain_graph_equals_its_eager_chain_on_card(cuda):
 # the flash backward kernel and the guard on the kernels with no backward
 # --------------------------------------------------------------------------- #
 BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+# the forward's row statistics against the plain version's: fp32 sums in
+# another order; in bf16 also ex2.approx (2^-22 relative) and m's trip
+# through the kernel's log2 domain
+STATS_TOL = dict(atol=1e-4, rtol=1e-4)
 FLASH_BWD_CASES = FLASH_CASES[:8] + [
     (1, 40, 40, 4, 2, 64, True, None, 16),    # keys start at 16: rows 0-15 see none
     (2, 16, 16, 4, 4, 8, True, None, 0),      # the forecaster's head shape
     (1, 24, 24, 32, 8, 120, True, None, 0),   # h2o-danube-3's D 120
+    (1, 100, 300, 32, 8, 128, True, 64, 0),   # D 128, G 4, windowed, Sq < Skv
+    (1, 200, 200, 14, 2, 64, True, None, 0),  # internvl2-1b's G 7
+    (8, 256, 256, 32, 8, 64, True, None, 0),  # granite-3-2b's training shape
 ]
 
 
 def _bwd_inputs(cuda, case, dtype, seed):
+    """(q, k, v, out, dout, m, linv) and the mask arguments: out and the row
+    statistics from the forward kernel, as FlashAttention saves them."""
     b, sq, skv, hq, hkv, d, causal, window = case[:8]
     shift = case[8] if len(case) > 8 else 0
     g = torch.Generator(device=cuda).manual_seed(seed)
-    q, out, dout = (torch.randn((b, sq, hq, d), generator=g, device=cuda).to(DTYPES[dtype])
-                    for _ in range(3))
+    q, dout = (torch.randn((b, sq, hq, d), generator=g, device=cuda).to(DTYPES[dtype])
+               for _ in range(2))
     k, v = (torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(DTYPES[dtype])
             for _ in range(2))
     q_pos = torch.arange(sq, device=cuda, dtype=torch.int32) + (skv - sq)
     kv_pos = torch.arange(skv, device=cuda, dtype=torch.int32) + shift
     args = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
-    out = tflash.flash_attention_hopper(q, k, v, **args)
-    return (q, k, v, out, dout), args
+    out, m, linv = tflash.flash_attention_hopper(q, k, v, **args, stats=True)
+    return (q, k, v, out, dout, m, linv), args
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_statistics_match_plain_on_card(cuda, case, dtype):
+    """With statistics on, the forward's output is bit-equal to its output
+    with them off (serving's), and m, 1 / l match the plain version's."""
+    (q, k, v, out, _, m, linv), args = _bwd_inputs(cuda, case, dtype, 6)
+    assert torch.equal(out, tflash.flash_attention_hopper(q, k, v, **args))
+    _, pm, pl = tflash.flash_attention_plain(q, k, v, **args, stats=True)
+    for name, a, w in (("m", m, pm), ("linv", linv, pl)):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), err_msg=name, **STATS_TOL)
 
 
 @pytest.mark.parametrize("case", FLASH_BWD_CASES)
@@ -602,13 +623,13 @@ def test_flash_bwd_kernel_is_deterministic_on_card(cuda, dtype):
 def test_flash_autograd_runs_the_backward_kernel_on_card(cuda):
     from repro_torch.kernels import ops
 
-    (q, k, v, _, dout), args = _bwd_inputs(cuda, FLASH_CASES[4], "float32", 9)
+    (q, k, v, _, dout, m, linv), args = _bwd_inputs(cuda, FLASH_CASES[4], "float32", 9)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     f0, b0 = tflash.launches, tflash.bwd_launches
     out = ops.flash_attention(*leaves, **args)
     grads = torch.autograd.grad(out, leaves, dout)
     assert (tflash.launches - f0, tflash.bwd_launches - b0) == (1, tflash.BWD_KERNELS)
-    want = tflash.flash_attention_bwd_plain(q, k, v, out.detach(), dout, **args)
+    want = tflash.flash_attention_bwd_plain(q, k, v, out.detach(), dout, m, linv, **args)
     for a, w in zip(grads, want):
         torch.testing.assert_close(a, w, **BWD_TOL["float32"])
 
