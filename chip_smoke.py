@@ -109,27 +109,42 @@ Phases, each fatal on failure:
                granite's training shape (bf16) and the forecaster's (fp32)
                beside the plain versions, scaled_dot_product_attention's (a
                yardstick only) and the simple SIMT backward it replaced;
- 19. train-grad — full-width granite-3-2b in fp32 at B 8 x S 256: bundle.loss
+ 19. ssm-bwd — the scan's backward kernel (csrc/ssm_scan_bwd.cu, two
+               launches: the reverse scan, the sums of its partials) against
+               its plain version on the scan phase's fixtures, N 32 and 5,
+               SMOKE jamba's train shape and the Jamba training shape (Bt 8,
+               T 256, Din 8192, N 16), fp32 (1e-4) and bf16 (5e-2), nonzero
+               h0 and dhT, each twice and bit-equal; the forward with
+               checkpoints bit-equal in y and hT to serving's; both timed at
+               the training shape (bf16) and SMOKE's (fp32) against bounds;
+ 20. train-grad — full-width granite-3-2b in fp32 at B 8 x S 256: bundle.loss
                and every leaf's gradient through the hand kernels (flash 2 a
                layer under remat, the backward BWD_KERNELS a layer) against
                the oracle attention on the same weights (loss 1e-5, grad norm
                1e-4 relative, every leaf within 1e-3 of its largest gradient);
- 20. train   — 10 bf16 optimizer steps of full-width granite-3-2b through
-               launch/train.py's main at its defaults (B 8 x S 256): every
-               loss, ms per step, tokens/s, peak memory, exact launches
-               (forward 80 a step, backward BWD_KERNELS x 40 kernels a step),
-               the losses finite and falling; one more step traced (busy
-               share, kernels by time);
- 21. forecaster-train — 10 steps of the forecaster's train step on the card
+ 21. train   — 10 bf16 optimizer steps of full-width granite-3-2b through
+               launch/train.py's main at its defaults (B 8 x S 256; AdamW in
+               place): every loss, ms per step, tokens/s, peak memory beside
+               the functional update's, exact launches (forward 80 a step,
+               backward BWD_KERNELS x 40 kernels a step), the losses finite
+               and falling; one more step traced (busy share, kernels by
+               time);
+ 22. hybrid-train — full-width jamba-v0.1-52b cut to its first two layers
+               (MM, 3.742 B parameters): phase 20 in fp32 at B 1 x S 256
+               (scan kernels vs the oracle scan), then phase 21's 10 bf16
+               steps through launch/train.py's train (scan forward 2 a Mamba
+               layer a step under remat, its backward kernels once);
+ 23. forecaster-train — 10 steps of the forecaster's train step on the card
                and on the CPU from one set of weights (losses within 1e-4),
                then train_forecaster on the card with its launches counted;
- 22. smoke-train — two train steps each of SMOKE whisper-large-v3 and
-               internvl2-1b, card vs CPU (losses within 1e-4), launches exact;
- 23. lifecycle — SMOKE granite-3-2b trained on the card, checkpointed, and
+ 24. smoke-train — two train steps each of SMOKE whisper-large-v3,
+               internvl2-1b and jamba-v0.1-52b (AM: attention, MoE, scan),
+               card vs CPU (losses within 1e-4), launches exact;
+ 25. lifecycle — SMOKE granite-3-2b trained on the card, checkpointed, and
                served from the engine's SnapshotStore (the trained weights
                and the trained model's tokens);
- 24. guard   — ssm_scan and decode attention on card inputs that require grad
-               raise (they have no backward kernel).
+ 26. guard   — decode attention on card inputs that require grad raises (it
+               has no backward kernel).
 The kernel phase also holds the flash kernel to its plain version at the
 forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it, and
 both attention kernels at whisper's (encoder 1500 x 1500 non-causal, cross
@@ -1896,6 +1911,21 @@ BWD_CASES = [(shape, name, 1, sq, skv, window, causal, 0)
     ("forecaster", "train", FORECASTER_TRAIN_B, 16, 16, None, True, 0),
     ("granite", "no_valid_key", 1, 100, 100, None, True, 40)]
 BWD_TIMED = {("granite", "train", "bfloat16"), ("forecaster", "train", "float32")}
+# the scan's backward against its plain version: fp32 sums over channels,
+# time and states in another order (the flash backward's 1e-4); bf16 du, dB
+# and dC are one rounding of an fp32 sum
+SSM_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# the hybrid family trains at full width cut to its first two layers: "MM",
+# one dense and one MoE FFN (the period is lcm(pattern, every_n_layers 2) =
+# 2 layers, the fewest), 3.742 B parameters; only depth cut, from 32
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_PATTERN = 2, "MM"
+HYBRID_GRAD_SHAPE = (1, 256)   # the fp32 gradient check's B x S
+HYBRID_TRAIN_STEPS = 10
+# SMOKE jamba's train step (smoke_train_phase): B 2 x S 32
+SMOKE_TRAIN_SHAPE = (2, 32)
+# granite's bf16 train step with the functional AdamW update (this script on
+# an H100 80GB HBM3 at 700.00 W), printed beside this run's
+GRANITE_TRAIN_BEFORE = dict(peak_gb=61.79, step_ms=507.1)
 
 
 def flash_bwd_phase(torch, dev):
@@ -2005,36 +2035,185 @@ def flash_bwd_phase(torch, dev):
     return timed
 
 
-def train_grad_phase(torch, dev):
-    """Full-width granite-3-2b in fp32: bundle.loss and the gradient of every
-    leaf at batch 8 x seq 256 through the hand kernels (flash forward twice a
-    layer under remat, the backward once) and through the oracle attention,
-    on one set of weights."""
-    from repro_torch.config import InputShape, get_config
-    from repro_torch.data import pipeline
+def _ssm_times(torch, args, ckpt, dy, dhT, got):
+    """Device ms (graph replay) and launch-by-launch ms of the forward with
+    checkpoints and of the backward at one shape, each plain version's ms
+    (one call) and each bound.  The backward's least work: every input read
+    and every output written once, each decay's exponential once, ~14 fp32
+    operations a (b, t, d, n) for the gradient's sums."""
+    from repro_torch.kernels import ssm_scan as ks
+
+    u, delta, A, B, C, D, h0 = args
+    bt, t, din = u.shape
+    n = A.shape[1]
+    t_exp = bt * t * din * n
+
+    def plain_ms(fn):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop)
+
+    def fwd():
+        return ks.ssm_scan_hopper(*args, checkpoints=True)
+
+    def bwd():
+        return ks.ssm_scan_bwd_hopper(*args, ckpt, dy, dhT)
+
+    y, hT, _ = fwd()
+    rows = {
+        "fwd": dict(ms=_graph_ms(torch, fwd), launch_ms=_time_ms(torch, fwd),
+                    plain_ms=plain_ms(lambda: ks.ssm_scan_plain(*args, checkpoints=True)),
+                    serving_ms=_graph_ms(torch, lambda: ks.ssm_scan_hopper(*args)),
+                    library_ms=None,
+                    bound=_bound(6.0 * t_exp, _nbytes(*args, y, hT, ckpt), "float32",
+                                 exps=t_exp)),
+        "bwd": dict(ms=_graph_ms(torch, bwd), launch_ms=_time_ms(torch, bwd),
+                    plain_ms=plain_ms(lambda: ks.ssm_scan_bwd_plain(*args, ckpt, dy, dhT)),
+                    library_ms=None,
+                    bound=_bound(14.0 * t_exp, _nbytes(u, delta, A, B, C, D, ckpt, dy, dhT,
+                                                       *got), "float32", exps=t_exp))}
+    return rows
+
+
+def ssm_bwd_phase(torch, dev):
+    """The scan's backward kernel (csrc/ssm_scan_bwd.cu) against its plain
+    version on the scan phase's fixtures, N 32 and N 5, SMOKE jamba's train
+    shape (B 2, T 32, Din 512, N 8) and the Jamba training shape (Bt 8, T
+    256, Din 8192, N 16), fp32 and bf16, nonzero h0 and dhT, each twice and
+    bit-equal; the forward with checkpoints bit-equal in y and hT to
+    serving's forward, its checkpoints within SSM_TOL of the plain
+    version's; the forward with checkpoints and the backward timed at the
+    training shape (bf16) and at SMOKE's (fp32).  Returns those rows."""
+    from repro_torch.config import get_config, reduced
+    from repro_torch.kernels import ssm_scan as ks
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    full, smoke = get_config(HYBRID), reduced(get_config(HYBRID))
+    jamba = (*TRAIN_SHAPE, full.ssm.expand * full.d_model, full.ssm.d_state)
+    smoke_case = (*SMOKE_TRAIN_SHAPE, smoke.ssm.expand * smoke.d_model, smoke.ssm.d_state)
+    cases = [(2, t, din, n) for t in (1, 37, 256, 300) for din in (64, 200)
+             for n in (4, 8, 16)] + [(3, 65, 96, 32), (1, 40, 24, 5), smoke_case, jamba]
+    timed, worst = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for case in cases:
+            args = _ssm_inputs(torch, gen, *case, dtype)
+            y0, hT0 = ks.ssm_scan_hopper(*args)
+            y, hT, ckpt = ks.ssm_scan_hopper(*args, checkpoints=True)
+            dy = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+            dhT = torch.randn(hT.shape, generator=gen, device=dev)
+            got = ks.ssm_scan_bwd_hopper(*args, ckpt, dy, dhT)
+            again = ks.ssm_scan_bwd_hopper(*args, ckpt, dy, dhT)
+            want = ks.ssm_scan_bwd_plain(*args, ckpt, dy, dhT)
+            want_ckpt = ks.ssm_scan_plain(*args, checkpoints=True)[2]
+            torch.cuda.synchronize()
+            serving_equal = torch.equal(y0, y) and torch.equal(hT0, hT)
+            ck_err, ck_ok = _close(ckpt, want_ckpt, SSM_TOL[dtype])
+            errs = [_close(g, w, SSM_BWD_TOL[dtype]) for g, w in zip(got, want)]
+            err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+            equal = all(torch.equal(a, c) for a, c in zip(got, again))
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            if not (serving_equal and ck_ok and ok and equal
+                    and all(torch.isfinite(g.float()).all() for g in got)):
+                _fail(f"ssm_scan_bwd {dtype} Bt,T,Din,N={case}: forward with checkpoints "
+                      f"equal to serving's {serving_equal}, checkpoints max_abs_err "
+                      f"{ck_err:.3e} (tol {SSM_TOL[dtype]}), gradients max_abs_err "
+                      f"{err:.3e} (tol {SSM_BWD_TOL[dtype]}), two calls bit-equal {equal}")
+            key = ("jamba" if case == jamba and dtype == "bfloat16" else
+                   "smoke" if case == smoke_case and dtype == "float32" else None)
+            if key is None:
+                continue
+            names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dh0")
+            print(f"kernel ssm_scan_bwd {dtype} {key} Bt,T,Din,N={case}: max_abs_err "
+                  + ", ".join(f"{nm} {e:.3e}" for nm, (e, _) in zip(names, errs))
+                  + f" (tol {SSM_BWD_TOL[dtype]}); two calls bit-equal; forward with "
+                  f"checkpoints bit-equal to serving's, checkpoints max_abs_err {ck_err:.3e}")
+            rows = _ssm_times(torch, args, ckpt, dy, dhT, got)
+            for what, row in rows.items():
+                row["max_abs_err"] = err if what == "bwd" else ck_err
+                timed[(what, key)] = row
+                extra = (f", serving's forward (no checkpoints) {row['serving_ms']:.4f} ms"
+                         if what == "fwd" else "")
+                print(f"time ssm_scan {what} {dtype} ({key} shape, Bt,T,Din,N={case}): kernel "
+                      f"{row['ms']:.4f} ms device (graph replay), {row['launch_ms']:.4f} ms "
+                      f"launch by launch (host included){extra}; plain {row['plain_ms']:.4f} "
+                      f"ms (one call), library none, bound {row['bound'][0]:.5f} ms "
+                      f"({row['bound'][1]})")
+    print(f"kernel ssm_scan_bwd: {2 * len(cases)} cases ok, each twice and bit-equal, max_abs_err "
+          f"fp32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}")
+    return timed
+
+
+def _train_counts():
     from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssm_scan as ks
+
+    return kf.launches, kf.bwd_launches, ks.launches, ks.bwd_launches
+
+
+def _reset_train_counts():
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssm_scan as ks
+
+    kf.launches = kf.bwd_launches = ks.launches = ks.bwd_launches = 0
+
+
+def _train_want(cfg, passes: int):
+    """Launches of ``passes`` forward + backward passes of ``cfg``: flash
+    forward, flash backward kernels, scan forward, scan backward kernels.
+    Each attention and Mamba layer runs its forward twice under remat (again
+    in the backward) and its backward kernels once."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssm_scan as ks
+
+    fwd = 2 if cfg.remat else 1
+    n_a, n_m = cfg.layer_pattern.count("A"), cfg.layer_pattern.count("M")
+    return (fwd * n_a * passes, kf.BWD_KERNELS * n_a * passes, fwd * n_m * passes,
+            ks.BWD_KERNELS * n_m * passes)
+
+
+COUNTS = "flash forward, flash backward, scan forward, scan backward kernels"
+
+
+def hybrid_train_cfg():
+    """Full-width jamba-v0.1-52b cut to its first two layers (bf16 weights)."""
+    from repro_torch.config import get_config
+
+    return dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_TRAIN_LAYERS,
+                               block_pattern=HYBRID_TRAIN_PATTERN)
+
+
+def train_grad_phase(torch, dev, cfg, label, shape):
+    """``cfg`` in fp32: bundle.loss and the gradient of every leaf at batch x
+    seq ``shape`` through the hand kernels (the forwards twice a layer under
+    remat, the backwards once) and through the plain path (oracle attention
+    and scan), on one set of weights."""
+    from repro_torch.config import InputShape
+    from repro_torch.data import pipeline
     from repro_torch.models import registry
     from repro_torch.training.train_loop import to_device, value_and_grad
 
-    cfg = dataclasses.replace(get_config(ARCH), dtype="float32", param_dtype="float32")
-    b, s = TRAIN_SHAPE
+    cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    b, s = shape
     kernel = registry.build(cfg, max_seq=s, device=dev)
     plain = registry.build(dataclasses.replace(cfg, attention_impl="oracle"), max_seq=s,
                            device=dev)
     model = kernel.init(torch.Generator(device=dev).manual_seed(0))
     batch = to_device(next(pipeline.batches(cfg, InputShape("train", s, b, "train"))), dev)
     torch.cuda.reset_peak_memory_stats()
-    kf.launches = kf.bwd_launches = 0
+    _reset_train_counts()
     t0 = time.perf_counter()
     lk, _, gk = value_and_grad(kernel, model, batch)
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
-    launches = (kf.launches, kf.bwd_launches)
+    launches = _train_counts()
     t0 = time.perf_counter()
     lp, _, gp = value_and_grad(plain, model, batch)
     torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
-    plain_launches = (kf.launches - launches[0], kf.bwd_launches - launches[1])
+    plain_launches = tuple(a - b for a, b in zip(_train_counts(), launches))
 
     def norm(g):
         return torch.sqrt(sum(x.double().square().sum() for x in g.values())).item()
@@ -2047,74 +2226,68 @@ def train_grad_phase(torch, dev):
         if r > worst:
             worst, worst_name = r, name
     lk, lp = lk.item(), lp.item()
-    calls = cfg.num_layers                  # flash calls a forward, one a layer
-    want = ((2 if cfg.remat else 1) * calls, kf.BWD_KERNELS * calls)
-    print(f"train-grad {ARCH} fp32 B {b} x S {s}: loss kernel {lk:.7f} plain {lp:.7f} "
+    want = _train_want(cfg, 1)
+    print(f"train-grad {label} fp32 B {b} x S {s}: loss kernel {lk:.7f} plain {lp:.7f} "
           f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {GRAD_TOL['loss']}); grad norm kernel "
           f"{nk:.6f} plain {np_:.6f} (rel {abs(nk - np_) / np_:.2e}, tol {GRAD_TOL['norm']}); "
           f"worst leaf max|diff| / max|grad| {worst:.2e} at {worst_name} (tol "
           f"{GRAD_TOL['leaf']}); {len(gp)} leaves")
-    print(f"train-grad {ARCH} fp32: loss + grads {t_kernel:.2f} s kernel path, {t_plain:.2f} s "
-          f"plain path; launches flash forward, backward kernels {launches} (expected {want}; "
-          f"plain path {plain_launches}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"train-grad {label} fp32: loss + grads {t_kernel:.2f} s kernel path, {t_plain:.2f} s "
+          f"plain path; launches {COUNTS} {launches} (expected {want}; plain path "
+          f"{plain_launches}); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if not (abs(lk - lp) <= GRAD_TOL["loss"] * abs(lp) and abs(nk - np_) <= GRAD_TOL["norm"] * np_
             and worst <= GRAD_TOL["leaf"] and math.isfinite(nk)):
-        _fail(f"train-grad {ARCH}: the kernel path's loss or gradients disagree with the "
+        _fail(f"train-grad {label}: the kernel path's loss or gradients disagree with the "
               f"plain path's")
-    if launches != want or plain_launches != (0, 0):
-        _fail(f"train-grad {ARCH}: launches {launches} / {plain_launches}, expected {want} / (0, 0)")
+    if launches != want or any(plain_launches):
+        _fail(f"train-grad {label}: launches {launches} / {plain_launches}, expected {want} / "
+              f"zeros")
     del model, gk, gp
     _free(torch)
 
 
-def train_phase(torch, dev):
-    """TRAIN_STEPS bf16 optimizer steps of full-width granite-3-2b through
-    ``python -m repro_torch.launch.train``'s main (batch 8 x seq 256), with
-    exact launch counts (flash forward 2 a layer a step under remat, the
-    backward BWD_KERNELS a layer a step), falling finite losses, ms per step,
-    tokens/s and peak memory; then one more step traced.  Returns the flash
-    forward and backward launches of the run."""
+def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None):
+    """``steps`` bf16 optimizer steps of ``cfg`` at batch 8 x seq 256, made
+    by ``run()`` (``launch/train.py``: its main, or its ``train`` on a bundle
+    of ``cfg``), with exact launch counts (each attention and Mamba layer's
+    forward 2 a step under remat, its backward kernels once), falling finite
+    losses, ms per step, tokens/s and peak memory (``before``: an earlier
+    run's, printed beside); then one more step traced.  Returns the run's
+    launches (``COUNTS``)."""
     import numpy as np
-    from repro_torch.config import InputShape, get_config
+    from repro_torch.config import InputShape
     from repro_torch.data import pipeline
-    from repro_torch.kernels import flash_attention as kf
-    from repro_torch.launch import train as launcher
     from repro_torch.models import registry
     from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_loop import make_train_step, param_tree, to_device
 
     b, s = TRAIN_SHAPE
-    cfg = get_config(ARCH)
     torch.cuda.reset_peak_memory_stats()
-    kf.launches = kf.bwd_launches = 0                  # the training path starts here
-    res = launcher.main(["--arch", ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(b),
-                         "--seq", str(s), "--device", dev.type])
-    launches = (kf.launches, kf.bwd_launches)          # read just after it
+    _reset_train_counts()                              # the training path starts here
+    res = run()
+    launches = _train_counts()                         # read just after it
     peak = torch.cuda.max_memory_allocated()
-    # the forward runs twice a step under remat (again in the backward)
-    want = ((2 if cfg.remat else 1) * cfg.num_layers * TRAIN_STEPS,
-            kf.BWD_KERNELS * cfg.num_layers * TRAIN_STEPS)
+    want = _train_want(cfg, steps)
     steady = float(np.mean(res.step_s[1:]))
-    print(f"train {ARCH} bf16 B {b} x S {s}, {TRAIN_STEPS} steps through launch/train.py: "
+    was = "" if before is None else (f" (before the in-place update: {before['step_ms']} ms a "
+                                     f"step, peak {before['peak_gb']} GB)")
+    print(f"train {label} bf16 B {b} x S {s}, {steps} steps through launch/train.py: "
           f"losses {[round(x, 4) for x in res.losses]}")
-    print(f"train {ARCH}: ms per step {[round(x * 1e3, 1) for x in res.step_s]}; after step 1 "
+    print(f"train {label}: ms per step {[round(x * 1e3, 1) for x in res.step_s]}; after step 1 "
           f"{steady * 1e3:.1f} ms a step, {b * s / steady:.0f} tokens/s ({res.tokens_per_s:.0f} "
-          f"tokens/s over all {TRAIN_STEPS} steps, the launcher's figure); peak memory "
-          f"{peak / 1e9:.2f} GB; launches flash forward, backward kernels {launches} (expected "
-          f"{want})")
+          f"tokens/s over all {steps} steps, the launcher's figure); peak memory "
+          f"{peak / 1e9:.2f} GB{was}; launches {COUNTS} {launches} (expected {want})")
     if not np.isfinite(res.losses).all() or not res.losses[-1] < res.losses[0]:
-        _fail(f"train {ARCH}: losses {res.losses} are not finite or do not fall")
+        _fail(f"train {label}: losses {res.losses} are not finite or do not fall")
     if launches != want:
-        _fail(f"train {ARCH}: launches {launches} != {want}")
+        _fail(f"train {label}: launches {launches} != {want}")
 
     bundle = registry.build(cfg, max_seq=s, device=dev)
     params = res.final_params
     del res
     _free(torch)
     opt_state = init_opt_state(param_tree(params))
-    step = make_train_step(bundle, OptimizerConfig(lr=3e-3, warmup_steps=1,
-                                                   total_steps=TRAIN_STEPS))
+    step = make_train_step(bundle, OptimizerConfig(lr=3e-3, warmup_steps=1, total_steps=steps))
     data = pipeline.batches(bundle.cfg, InputShape("train", s, b, "train"), seed=1)
     batch = to_device(next(data), dev)
     step(params, opt_state, batch)
@@ -2123,10 +2296,49 @@ def train_phase(torch, dev):
     step(params, opt_state, batch)
     torch.cuda.synchronize()
     _profile_call(torch, time.perf_counter() - t0, lambda: step(params, opt_state, batch),
-                  f"{ARCH} train step", top=12, also=("flash_fwd", "bwd_dq", "bwd_dkdv"))
+                  f"{label} train step", top=12,
+                  also=("flash_fwd", "bwd_dq", "bwd_dkdv", "ssm_kernel", "ssm_bwd"))
     del params, opt_state, batch
     _free(torch)
     return launches
+
+
+def granite_train_phase(torch, dev):
+    """10 bf16 steps of full-width granite-3-2b through ``python -m
+    repro_torch.launch.train``'s main at its defaults."""
+    from repro_torch.config import get_config
+    from repro_torch.launch import train as launcher
+
+    b, s = TRAIN_SHAPE
+    return train_phase(torch, dev, get_config(ARCH), ARCH, lambda: launcher.main(
+        ["--arch", ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(b), "--seq", str(s),
+         "--device", dev.type]), before=GRANITE_TRAIN_BEFORE)
+
+
+def hybrid_train_phase(torch, dev):
+    """HYBRID_TRAIN_STEPS bf16 steps of full-width Jamba cut to two layers,
+    through ``launch/train.py``'s ``train`` with the launcher's optimizer
+    settings on a bundle of the cut config (the launcher's ``--layers`` cuts
+    only ``--smoke`` configs)."""
+    from repro_torch.config import InputShape
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import registry
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    cfg = hybrid_train_cfg()
+    b, s = TRAIN_SHAPE
+    steps = HYBRID_TRAIN_STEPS
+
+    def run():
+        bundle = registry.build(cfg, max_seq=s, device=dev)
+        data = pipeline.batches(cfg, InputShape("cli", s, b, "train"))
+        return launcher.train(bundle, data, steps=steps, opt_cfg=OptimizerConfig(
+            lr=3e-3, warmup_steps=steps // 10, total_steps=steps))
+
+    print(f"train {HYBRID} x{HYBRID_TRAIN_LAYERS} layers ({cfg.layer_pattern}): "
+          f"{cfg.param_count() / 1e9:.3f} B parameters")
+    return train_phase(torch, dev, cfg, f"{HYBRID} x{HYBRID_TRAIN_LAYERS}", run, steps=steps)
 
 
 def forecaster_train_phase(torch, dev):
@@ -2182,9 +2394,11 @@ def forecaster_train_phase(torch, dev):
 
 
 def smoke_train_phase(torch, dev):
-    """One SMOKE whisper-large-v3 and internvl2-1b train step after another,
-    two each, on the card and on the CPU from one set of fp32 weights and
-    batches: the losses within SMOKE_TRAIN_TOL, the launches exact."""
+    """Two train steps each of SMOKE whisper-large-v3, internvl2-1b and
+    jamba-v0.1-52b (pattern AM: attention, MoE and the scan train), on the
+    card and on the CPU from one set of fp32 weights and batches: the losses
+    within SMOKE_TRAIN_TOL, the launches exact.  Returns SMOKE jamba's
+    launches (``COUNTS``)."""
     from repro_torch.config import InputShape
     from repro_torch.data import pipeline
     from repro_torch.kernels import flash_attention as kf
@@ -2192,23 +2406,21 @@ def smoke_train_phase(torch, dev):
     from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_loop import make_train_step, param_tree, to_device
 
-    for arch in (ENCDEC, VISION):
-        host = registry.build_arch(arch, smoke=True, max_seq=32, device="cpu")
-        card = registry.build_arch(arch, smoke=True, max_seq=32, device=dev)
+    b, s = SMOKE_TRAIN_SHAPE
+    counts = {}
+    for arch in (ENCDEC, VISION, HYBRID):
+        host = registry.build_arch(arch, smoke=True, max_seq=s, device="cpu")
+        card = registry.build_arch(arch, smoke=True, max_seq=s, device=dev)
         p_host = host.init(torch.Generator().manual_seed(0))
         p_card = card.empty()
         p_card.load_state_dict({k: v.to(dev, copy=True) for k, v in p_host.state_dict().items()},
                                assign=True)
         cfg = host.cfg
-        # flash calls a step: one a layer; whisper's encoder layers one, its
-        # decoder layers two (self, cross)
-        per_step = (cfg.num_layers if cfg.encoder is None
-                    else cfg.encoder.num_layers + 2 * cfg.num_layers)
         opt = OptimizerConfig(lr=3e-3, warmup_steps=1, total_steps=2)
         steps = (make_train_step(host, opt), make_train_step(card, opt))
         states = (init_opt_state(param_tree(p_host)), init_opt_state(param_tree(p_card)))
-        it = pipeline.batches(cfg, InputShape("train", 32, 2, "train"))
-        kf.launches = kf.bwd_launches = 0
+        it = pipeline.batches(cfg, InputShape("train", s, b, "train"))
+        _reset_train_counts()
         for i in range(2):
             batch = next(it)
             _, sh, mh = steps[0](p_host, states[0], to_device(batch, torch.device("cpu")))
@@ -2220,12 +2432,17 @@ def smoke_train_phase(torch, dev):
                   f"tol={SMOKE_TRAIN_TOL} {'ok' if ok else 'FAIL'}")
             if not ok:
                 _fail(f"smoke-train {arch}: the card's loss disagrees with the CPU's")
-        launches = (kf.launches, kf.bwd_launches)
-        want = (2 * per_step, 2 * kf.BWD_KERNELS * per_step)
-        print(f"smoke-train {arch}: launches flash forward, backward kernels {launches} "
-              f"(expected {want})")
+        launches = counts[arch] = _train_counts()
+        # whisper: its encoder layers one flash call a step, its decoder
+        # layers two (self, cross); the others one a layer of their pattern
+        want = _train_want(cfg, 2)
+        if cfg.encoder is not None:
+            flash = cfg.encoder.num_layers + 2 * cfg.num_layers
+            want = (2 * flash, 2 * kf.BWD_KERNELS * flash, 0, 0)
+        print(f"smoke-train {arch}: launches {COUNTS} {launches} (expected {want})")
         if launches != want:
             _fail(f"smoke-train {arch}: launches {launches} != {want}")
+    return counts[HYBRID]
 
 
 def lifecycle_phase(torch, dev):
@@ -2272,23 +2489,16 @@ def guard_phase(torch, dev):
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    u = torch.randn((1, 8, 16), generator=gen, device=dev, requires_grad=True)
-    rest = (torch.rand((1, 8, 16), generator=gen, device=dev),
-            -torch.rand((16, 4), generator=gen, device=dev),
-            torch.randn((1, 8, 4), generator=gen, device=dev),
-            torch.randn((1, 8, 4), generator=gen, device=dev),
-            torch.ones(16, device=dev), torch.zeros((1, 16, 4), device=dev))
     q = torch.randn((1, 4, 64), generator=gen, device=dev, requires_grad=True)
     kc = torch.randn((1, 32, 2, 64), generator=gen, device=dev)
     mask = torch.ones((1, 32), dtype=torch.bool, device=dev)
-    for name, call in (("ssm_scan", lambda: ops.ssm_scan(u, *rest)),
-                       ("decode_attention", lambda: ops.decode_attention(q, kc, kc, mask))):
-        try:
-            call()
-        except RuntimeError as e:
-            print(f"guard {name} with an input that requires grad on the card: raised ({e})")
-            continue
-        _fail(f"guard: {name} launched on inputs that require grad")
+    try:
+        ops.decode_attention(q, kc, kc, mask)
+    except RuntimeError as e:
+        print(f"guard decode_attention with an input that requires grad on the card: "
+              f"raised ({e})")
+        return
+    _fail("guard: decode_attention launched on inputs that require grad")
 
 
 def main() -> int:
@@ -2335,6 +2545,7 @@ def main() -> int:
     fc_flash = forecaster_flash(torch, dev)
     train_timed = flash_bwd_phase(torch, dev)
     timed["ssm_scan"] = ssm_kernel_phase(torch, dev)
+    ssm_timed = ssm_bwd_phase(torch, dev)
     model_phase(torch, dev, dataclasses.replace(get_config(ARCH), dtype="float32",
                                                 param_dtype="float32"), f"{ARCH} fp32")
     launches = engine_phase(torch)
@@ -2356,10 +2567,13 @@ def main() -> int:
     w = encdec_phase(torch, dev)
     vl = vision_phase(torch, dev)
     chain_phase(torch)
-    train_grad_phase(torch, dev)
-    train_launches = train_phase(torch, dev)
+    train_grad_phase(torch, dev, get_config(ARCH), ARCH, TRAIN_SHAPE)
+    train_launches = granite_train_phase(torch, dev)
+    train_grad_phase(torch, dev, hybrid_train_cfg(), f"{HYBRID} x{HYBRID_TRAIN_LAYERS}",
+                     HYBRID_GRAD_SHAPE)
+    hybrid_train_launches = hybrid_train_phase(torch, dev)
     fc_train_launches = forecaster_train_phase(torch, dev)
-    smoke_train_phase(torch, dev)
+    smoke_launches = smoke_train_phase(torch, dev)
     lifecycle_phase(torch, dev)
     guard_phase(torch, dev)
     # a kernel on several main paths: each path's launches (counts set to 0
@@ -2382,6 +2596,13 @@ def main() -> int:
              "flash_attention_bwd": [
                  ("granite-train", train_launches[1], train_timed[("bwd", "granite")]),
                  ("forecaster-train", fc_train_launches[1], train_timed[("bwd", "forecaster")])],
+             "ssm_scan": [
+                 ("hybrid-serve", launches["ssm_scan"], timed["ssm_scan"]),
+                 ("jamba-train", hybrid_train_launches[2], ssm_timed[("fwd", "jamba")]),
+                 ("jamba-smoke-train", smoke_launches[2], ssm_timed[("fwd", "smoke")])],
+             "ssm_scan_bwd": [
+                 ("jamba-train", hybrid_train_launches[3], ssm_timed[("bwd", "jamba")]),
+                 ("jamba-smoke-train", smoke_launches[3], ssm_timed[("bwd", "smoke")])],
              "decode_attention": [
                  ("engine", launches["decode_attention"], at("decode_attention", "granite", "decode")),
                  *((f"whisper-{name}", w["decode_attention"] // 2,
@@ -2392,15 +2613,18 @@ def main() -> int:
     timed = {"flash_attention": at("flash_attention", "granite", "prefill"),
              "decode_attention": at("decode_attention", "granite", "decode"),
              "ssm_scan": timed["ssm_scan"], "cluster_step": timed["cluster_step"],
-             "flash_attention_bwd": train_timed[("bwd", "granite")]}
+             "flash_attention_bwd": train_timed[("bwd", "granite")],
+             "ssm_scan_bwd": ssm_timed[("bwd", "jamba")]}
 
-    # the backward has no TPU kernel: the JAX package trains through
-    # jax.vjp of its jnp flash attention (ops.py:46, _flash_reference)
+    # the backwards have no TPU kernel: the JAX package trains through
+    # jax.vjp of its jnp flash attention (ops.py:46, _flash_reference) and of
+    # its jnp two-level scan (ops.py:146)
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
                 "flash_attention_bwd": "src/repro/kernels/ops.py:46",
                 "decode_attention": "src/repro/kernels/decode_attention.py:57",
                 "cluster_step": "src/repro/kernels/cluster_step.py:237",
-                "ssm_scan": "src/repro/kernels/ssm_scan.py:62"}
+                "ssm_scan": "src/repro/kernels/ssm_scan.py:62",
+                "ssm_scan_bwd": "src/repro/kernels/ops.py:146"}
     def numbers(t):
         return {"max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],

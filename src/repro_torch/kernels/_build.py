@@ -24,7 +24,7 @@ from typing import Dict, Sequence, Tuple
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "cluster_step",
-           "ssm_scan")
+           "ssm_scan", "ssm_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-source flags, appended to NVCC_FLAGS for that library only.  The cluster

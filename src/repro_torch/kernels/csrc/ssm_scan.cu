@@ -36,6 +36,13 @@
 // chunk is written back; y goes out as 16-byte vectors.  Rows that are not
 // 16-byte aligned (Din or N * itemsize not a multiple of 16) are staged
 // element by element, synchronously; ragged Din, T and N are masked.
+//
+// Checkpoints for the backward (ssm_scan_bwd.cu).  A template flag, set when
+// the caller passes a checkpoint buffer, makes each thread write its states
+// as a chunk begins: ckpt (Bt, ceil(T / CHUNK), Din, N) fp32, entry k the
+// state entering step k * CHUNK (entry 0 is h0).  Serving passes no buffer
+// and launches the instantiation without the flag, whose code is the one
+// without checkpoints.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -134,13 +141,15 @@ __host__ __device__ constexpr int smem_bytes(int N) {
 // B, C: (Bt, T, N) T; D: (Din,) fp32; h0: (Bt, Din, N) fp32
 // -> y: (Bt, T, Din) T; hT: (Bt, Din, N) fp32.  Grid (ceil(Din / CPB), Bt),
 // CPB * L threads.  vec: every row 16-byte aligned (cp.async, vector stores).
-template <typename T, int L>
+// CK: write the chunk checkpoints into ckpt (see the header).
+template <typename T, int L, bool CK>
 __global__ void __launch_bounds__(CPB * L)
 ssm_kernel(const T* __restrict__ u, const float* __restrict__ delta,
            const float* __restrict__ A, const T* __restrict__ B,
            const T* __restrict__ C, const float* __restrict__ D,
            const float* __restrict__ h0, T* __restrict__ y,
-           float* __restrict__ hT, int Tlen, int Din, int N, int vec) {
+           float* __restrict__ hT, float* __restrict__ ckpt, int Tlen, int Din, int N,
+           int vec) {
   constexpr int THREADS = CPB * L;
   constexpr int BC = 2 * STATES;              // a lane's B then C of one step
   constexpr int YS = ys_stride(L);
@@ -267,6 +276,14 @@ ssm_kernel(const T* __restrict__ u, const float* __restrict__ delta,
   __syncthreads();
 
   for (int k = 0; k < nchunks; ++k) {
+    if constexpr (CK) {                // the state entering chunk k
+#pragma unroll
+      for (int s = 0; s < STATES; ++s) {
+        const int n = STATES * g + s;
+        if (dlive && n < N)
+          ckpt[((static_cast<size_t>(b) * nchunks + k) * Din + d) * N + n] = h[s];
+      }
+    }
     const int st = k & 1;
     const int steps = min(CHUNK, Tlen - k * CHUNK);
     const T* us = u_raw(st);
@@ -342,12 +359,12 @@ ssm_kernel(const T* __restrict__ u, const float* __restrict__ delta,
   }
 }
 
-template <typename T, int L>
-int launch_l(const void* u, const void* delta, const void* A, const void* B,
-             const void* C, const void* D, const void* h0, void* y, void* hT,
+template <typename T, int L, bool CK>
+int launch_k(const void* u, const void* delta, const void* A, const void* B,
+             const void* C, const void* D, const void* h0, void* y, void* hT, void* ckpt,
              int Bt, int Tlen, int Din, int N, cudaStream_t stream) {
   const int smem = smem_bytes<T, L>(N);
-  cudaError_t err = cudaFuncSetAttribute(ssm_kernel<T, L>,
+  cudaError_t err = cudaFuncSetAttribute(ssm_kernel<T, L, CK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(delta) |
@@ -357,27 +374,38 @@ int launch_l(const void* u, const void* delta, const void* A, const void* B,
   const int vec = (ptrs & 15u) == 0 && (Din * es) % 16 == 0 && (Din * 4) % 16 == 0 &&
                   (N * es) % 16 == 0;
   const dim3 grid((Din + CPB - 1) / CPB, Bt);
-  ssm_kernel<T, L><<<grid, CPB * L, smem, stream>>>(
+  ssm_kernel<T, L, CK><<<grid, CPB * L, smem, stream>>>(
       static_cast<const T*>(u), static_cast<const float*>(delta),
       static_cast<const float*>(A), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<const float*>(D),
       static_cast<const float*>(h0), static_cast<T*>(y), static_cast<float*>(hT),
-      Tlen, Din, N, vec);
+      static_cast<float*>(ckpt), Tlen, Din, N, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int L>
+int launch_l(const void* u, const void* delta, const void* A, const void* B,
+             const void* C, const void* D, const void* h0, void* y, void* hT, void* ckpt,
+             int Bt, int Tlen, int Din, int N, cudaStream_t stream) {
+  if (ckpt != nullptr)
+    return launch_k<T, L, true>(u, delta, A, B, C, D, h0, y, hT, ckpt, Bt, Tlen, Din, N, stream);
+  return launch_k<T, L, false>(u, delta, A, B, C, D, h0, y, hT, ckpt, Bt, Tlen, Din, N, stream);
 }
 
 template <typename T>
 int launch(const void* u, const void* delta, const void* A, const void* B,
-           const void* C, const void* D, const void* h0, void* y, void* hT,
+           const void* C, const void* D, const void* h0, void* y, void* hT, void* ckpt,
            int Bt, int Tlen, int Din, int N, cudaStream_t stream) {
   if (N < 1 || N > MAX_N || Tlen < 1 || Din < 1 || Bt < 1 || Bt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   int lanes = 1;                       // lanes a channel: the power of two >= N / STATES
   while (lanes * STATES < N) lanes *= 2;
-  if (lanes == 1) return launch_l<T, 1>(u, delta, A, B, C, D, h0, y, hT, Bt, Tlen, Din, N, stream);
-  if (lanes == 2) return launch_l<T, 2>(u, delta, A, B, C, D, h0, y, hT, Bt, Tlen, Din, N, stream);
-  if (lanes == 4) return launch_l<T, 4>(u, delta, A, B, C, D, h0, y, hT, Bt, Tlen, Din, N, stream);
-  return launch_l<T, 8>(u, delta, A, B, C, D, h0, y, hT, Bt, Tlen, Din, N, stream);
+#define ARGS u, delta, A, B, C, D, h0, y, hT, ckpt, Bt, Tlen, Din, N, stream
+  if (lanes == 1) return launch_l<T, 1>(ARGS);
+  if (lanes == 2) return launch_l<T, 2>(ARGS);
+  if (lanes == 4) return launch_l<T, 4>(ARGS);
+  return launch_l<T, 8>(ARGS);
+#undef ARGS
 }
 
 }  // namespace
@@ -385,15 +413,16 @@ int launch(const void* u, const void* delta, const void* A, const void* B,
 extern "C" {
 
 // Returns the CUDA error of the launch (0 on success).  dtype of u, B, C and
-// y: 0 fp32, 1 bf16; delta, A, D, h0 and hT are fp32.
+// y: 0 fp32, 1 bf16; delta, A, D, h0, hT and ckpt are fp32.  ckpt: null, or
+// the (Bt, ceil(T / 32), Din, N) buffer of chunk checkpoints.
 int ssm_scan_fwd(const void* u, const void* delta, const void* A, const void* B,
                  const void* C, const void* D, const void* h0, void* y, void* hT,
-                 int Bt, int Tlen, int Din, int N, int dtype, void* stream) {
+                 void* ckpt, int Bt, int Tlen, int Din, int N, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(u, delta, A, B, C, D, h0, y, hT, Bt, Tlen, Din, N, st);
+    return launch<float>(u, delta, A, B, C, D, h0, y, hT, ckpt, Bt, Tlen, Din, N, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(u, delta, A, B, C, D, h0, y, hT, Bt, Tlen, Din, N, st);
+    return launch<__nv_bfloat16>(u, delta, A, B, C, D, h0, y, hT, ckpt, Bt, Tlen, Din, N, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

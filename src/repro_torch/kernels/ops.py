@@ -18,7 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_hopper
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_hopper
-from repro_torch.kernels.ssm_scan import ssm_scan_hopper
+from repro_torch.kernels.ssm_scan import SSMScan, ssm_scan_hopper
 
 IMPLS = ("reference", "pallas", "oracle")
 
@@ -67,13 +67,20 @@ def ssm_scan(u, delta, A, B, C, D, h0, *, chunk: int = 256,
 
     ``chunk`` is taken for the JAX signature; the hand kernel stages its own
     chunks of time.  Strided views (the splits of a projection) are made
-    contiguous here: the kernel's wrapper takes contiguous tensors only.
+    contiguous here: the kernel's wrapper takes contiguous tensors only (the
+    gradient flows back through the copy).  With grad mode on and an input
+    that requires grad, the call goes through :class:`SSMScan` (the backward
+    kernel on CUDA, its plain version on the CPU); otherwise straight to the
+    forward wrapper.
     """
     del chunk
     _check_impl(impl)
     if impl == "oracle":
         return _ref.ssm_scan_ref(u, delta, A, B, C, D, h0)
-    return ssm_scan_hopper(*(x.contiguous() for x in (u, delta, A, B, C, D, h0)))
+    args = tuple(x.contiguous() for x in (u, delta, A, B, C, D, h0))
+    if _build.needs_grad(*args):
+        return SSMScan.apply(*args)
+    return ssm_scan_hopper(*args)
 
 
 def ssm_step(u, delta, A, B, C, D, h):

@@ -1,9 +1,13 @@
-"""Mamba-1 selective scan: the hand kernel (``csrc/ssm_scan.cu``), its
-wrapper and its plain torch version.
+"""Mamba-1 selective scan: the hand kernels (``csrc/ssm_scan.cu``, and its
+gradient ``csrc/ssm_scan_bwd.cu``), their wrappers and their plain torch
+versions.
 
-Replaces ``repro.kernels.ssm_scan.ssm_scan_pallas``.  The wrapper launches
-the kernel for CUDA tensors (or raises) and runs :func:`ssm_scan_plain` for
-CPU tensors; nothing falls back.
+The forward replaces ``repro.kernels.ssm_scan.ssm_scan_pallas``; the
+backward has no TPU kernel beside it (the JAX package trains through
+``jax.vjp`` of its jnp scan, ``repro.kernels.ops.ssm_scan``).  Each wrapper
+launches its kernel for CUDA tensors (or raises) and runs the plain version
+for CPU tensors; nothing falls back.  :class:`SSMScan` joins the two for
+autograd.
 """
 from __future__ import annotations
 
@@ -13,15 +17,18 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0   # kernel launches; chip_smoke.py resets and reads it
+launches = 0       # forward kernel launches; chip_smoke.py resets and reads them
+bwd_launches = 0   # backward kernel launches (BWD_KERNELS a call)
+BWD_KERNELS = 2    # the reverse scan, then the sums of its partials
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"ssm_scan_fwd": (_P,) * 9 + (_I,) * 5 + (_P,)}
+_SIGNATURES = {"ssm_scan_fwd": (_P,) * 10 + (_I,) * 5 + (_P,)}
+_BWD_SIGNATURES = {"ssm_scan_bwd": (_P,) * 17 + (_I,) * 5 + (_P,)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 32     # N: at most 8 lanes of 4 states a channel
 STATES = 4         # states a lane
 CHANNELS = 64      # channels a block
-CHUNK = 32         # time steps a stage of the ring holds
+CHUNK = 32         # time steps a stage of the ring holds; the checkpoints' interval
 
 
 def scan_geometry(n: int, itemsize: int) -> dict:
@@ -42,25 +49,89 @@ def scan_geometry(n: int, itemsize: int) -> dict:
                 threads=CHANNELS * lanes, chunk=CHUNK, smem_bytes=smem)
 
 
-def ssm_scan_plain(u, delta, A, B, C, D, h0):
+def _step(h, df, uf, Af, Bf, t):
+    """h_t from h_{t-1}: the recurrence's fp32 arithmetic."""
+    d_t = df[:, t, :, None]
+    return torch.exp(d_t * Af) * h + (d_t * uf[:, t, :, None]) * Bf[:, t, None, :]
+
+
+def ssm_scan_plain(u, delta, A, B, C, D, h0, *, checkpoints: bool = False):
     """A loop over T of the kernel's fp32 arithmetic.
 
     u, delta: (Bt, T, Din); A: (Din, N); B, C: (Bt, T, N); D: (Din,);
-    h0: (Bt, Din, N).  Returns (y (Bt, T, Din) in u's dtype, hT fp32).
+    h0: (Bt, Din, N).  Returns (y (Bt, T, Din) in u's dtype, hT fp32), and
+    with ``checkpoints`` also the state entering every CHUNK-th step,
+    (Bt, ceil(T / CHUNK), Din, N) fp32 (entry 0 is h0).
     """
     uf, df, Af, Bf, Cf = (x.float() for x in (u, delta, A, B, C))
     h = h0.float()
     y = torch.empty_like(uf)
+    kept = []
     for t in range(u.shape[1]):
-        d_t = df[:, t, :, None]
-        h = torch.exp(d_t * Af) * h + (d_t * uf[:, t, :, None]) * Bf[:, t, None, :]
+        if checkpoints and t % CHUNK == 0:
+            kept.append(h)
+        h = _step(h, df, uf, Af, Bf, t)
         y[:, t] = (h * Cf[:, t, None, :]).sum(-1)
-    return (y + uf * D.float()).to(u.dtype), h
+    out = ((y + uf * D.float()).to(u.dtype), h)
+    return (*out, torch.stack(kept, 1)) if checkpoints else out
+
+
+def ssm_scan_bwd_plain(u, delta, A, B, C, D, h0, ckpt, dy, dhT):
+    """The gradient of :func:`ssm_scan_plain` for ``dy`` (u's dtype and
+    shape) and ``dhT`` (fp32), the backward kernel's arithmetic in a reverse
+    loop: each chunk's states recomputed from its checkpoint, then walked
+    back.  Returns (du, ddelta, dA, dB, dC, dD, dh0): du, dB and dC in their
+    inputs' dtype, the rest fp32.  ``h0`` is ``ckpt[:, 0]``, taken for the
+    forward's signature.
+    """
+    del h0
+    uf, df, Af, Bf, Cf, gf = (x.float() for x in (u, delta, A, B, C, dy))
+    t_len = u.shape[1]
+    du, ddelta = torch.empty_like(uf), torch.empty_like(df)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    carry = dhT.float()                      # a_{t+1} G_{t+1}; dhT past the end
+    for k in reversed(range(ckpt.shape[1])):
+        t0 = k * CHUNK
+        hs = [ckpt[:, k].float()]            # h_{t0 - 1}, h_{t0}, ...
+        for t in range(t0, min(t0 + CHUNK, t_len)):
+            hs.append(_step(hs[-1], df, uf, Af, Bf, t))
+        for i in reversed(range(len(hs) - 1)):
+            t = t0 + i
+            d_t, u_t, g_t = df[:, t, :, None], uf[:, t, :, None], gf[:, t, :, None]
+            b_t = Bf[:, t, None, :]
+            a = torch.exp(d_t * Af)
+            G = g_t * Cf[:, t, None, :] + carry
+            ah = a * hs[i]
+            du[:, t] = (G * b_t).sum(-1) * df[:, t] + gf[:, t] * D.float()
+            ddelta[:, t] = (G * (Af * ah + u_t * b_t)).sum(-1)
+            dA += (G * d_t * ah).sum(0)
+            dB[:, t] = (G * (d_t * u_t)).sum(1)
+            dC[:, t] = (g_t * hs[i + 1]).sum(1)
+            carry = a * G
+    dD = (gf * uf).sum((0, 1))
+    return (du.to(u.dtype), ddelta, dA, dB.to(B.dtype), dC.to(C.dtype), dD, carry)
 
 
 def library():
     """The kernel's shared library, built from ``csrc/ssm_scan.cu`` if missing."""
     return _build.load("ssm_scan", _SIGNATURES)
+
+
+def bwd_library():
+    """The backward's shared library, built from ``csrc/ssm_scan_bwd.cu``."""
+    return _build.load("ssm_scan_bwd", _BWD_SIGNATURES)
+
+
+def n_chunks(t: int) -> int:
+    """Checkpoints a scan of ``t`` steps keeps: one a CHUNK steps."""
+    return -(-t // CHUNK)
+
+
+def bwd_workspace(bt: int, t: int, din: int, n: int) -> int:
+    """fp32 elements of the backward's scratch: the per-block dB and dC
+    partials, the per-row dA and dD partials (``ssm_scan_bwd.cu``)."""
+    return 2 * (-(-din // CHANNELS)) * bt * t * n + bt * din * n + bt * din
 
 
 def _check(u, delta, A, B, C, D, h0):
@@ -93,25 +164,84 @@ def _check(u, delta, A, B, C, D, h0):
             raise ValueError(f"{name} must be contiguous")
 
 
-def ssm_scan_hopper(u, delta, A, B, C, D, h0):
+def ssm_scan_hopper(u, delta, A, B, C, D, h0, *, checkpoints: bool = False):
     """See :func:`ssm_scan_plain`.  A CUDA tensor goes to the hand kernel, a
-    CPU tensor to the plain version."""
+    CPU tensor to the plain version.  The kernel writes the checkpoints only
+    when asked: the instantiation that serving launches is the one without
+    them."""
     global launches
     if u.device.type == "cpu":
-        return ssm_scan_plain(u, delta, A, B, C, D, h0)
+        return ssm_scan_plain(u, delta, A, B, C, D, h0, checkpoints=checkpoints)
     if u.device.type != "cuda":
         raise ValueError(f"the selective scan runs on cuda or cpu, not {u.device}")
-    _build.refuse_grad("ssm_scan", "the scan's backward kernel, ROADMAP A6's next item",
-                       u, delta, A, B, C, D, h0)
     _check(u, delta, A, B, C, D, h0)
     lib = library()
     bt, t, din = u.shape
+    n = A.shape[1]
     y = torch.empty_like(u)
     hT = torch.empty_like(h0)
+    ckpt = torch.empty((bt, n_chunks(t), din, n), dtype=torch.float32,
+                       device=u.device) if checkpoints else None
     code = _build.call(
         u.device, lib.ssm_scan_fwd, u.data_ptr(), delta.data_ptr(), A.data_ptr(),
         B.data_ptr(), C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
-        hT.data_ptr(), bt, t, din, A.shape[1], _DTYPES[u.dtype])
+        hT.data_ptr(), None if ckpt is None else ckpt.data_ptr(), bt, t, din, n,
+        _DTYPES[u.dtype])
     _build.check(lib, "ssm_scan", code)
     launches += 1
-    return y, hT
+    return (y, hT, ckpt) if checkpoints else (y, hT)
+
+
+def ssm_scan_bwd_hopper(u, delta, A, B, C, D, h0, ckpt, dy, dhT):
+    """(du, ddelta, dA, dB, dC, dD, dh0) of the forward for ``dy`` and
+    ``dhT``; ``ckpt`` is what the forward gave with ``checkpoints=True``.  A
+    CUDA tensor goes to the hand kernel (BWD_KERNELS launches), a CPU tensor
+    to :func:`ssm_scan_bwd_plain`."""
+    global bwd_launches
+    if u.device.type == "cpu":
+        return ssm_scan_bwd_plain(u, delta, A, B, C, D, h0, ckpt, dy, dhT)
+    if u.device.type != "cuda":
+        raise ValueError(f"the selective scan runs on cuda or cpu, not {u.device}")
+    _check(u, delta, A, B, C, D, h0)
+    bt, t, din = u.shape
+    n = A.shape[1]
+    for name, x, shape, dtype in (("dy", dy, u.shape, u.dtype),
+                                  ("dhT", dhT, h0.shape, torch.float32),
+                                  ("ckpt", ckpt, (bt, n_chunks(t), din, n), torch.float32)):
+        if tuple(x.shape) != tuple(shape) or x.dtype != dtype or x.device != u.device:
+            raise ValueError(f"{name} must be {dtype} {tuple(shape)} on {u.device}: "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = bwd_library()
+    du, ddelta = torch.empty_like(u), torch.empty_like(delta)
+    dA, dB, dC, dD = (torch.empty_like(x) for x in (A, B, C, D))
+    dh0 = torch.empty_like(h0)
+    work = torch.empty(bwd_workspace(bt, t, din, n), dtype=torch.float32, device=u.device)
+    code = _build.call(
+        u.device, lib.ssm_scan_bwd, *(x.data_ptr() for x in (
+            u, delta, A, B, C, D, ckpt, dy, dhT, du, ddelta, dA, dB, dC, dD, dh0, work)),
+        bt, t, din, n, _DTYPES[u.dtype])
+    _build.check(lib, "ssm_scan_bwd", code)
+    bwd_launches += BWD_KERNELS
+    return du, ddelta, dA, dB, dC, dD, dh0
+
+
+class SSMScan(torch.autograd.Function):
+    """The selective scan with a gradient: the forward wrapper with its
+    checkpoints, then the backward wrapper on what it saved (the inputs and
+    the checkpoints; the forward is deterministic, so recomputing it under
+    activation checkpointing changes none of them).  ``dhT`` arrives as
+    zeros where the loss does not reach the final state."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, h0):
+        y, hT, ckpt = ssm_scan_hopper(u, delta, A, B, C, D, h0, checkpoints=True)
+        ctx.save_for_backward(u, delta, A, B, C, D, h0, ckpt)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        u, delta, A, B, C, D, h0, ckpt = ctx.saved_tensors
+        return ssm_scan_bwd_hopper(u, delta, A, B, C, D, h0, ckpt, dy.contiguous(),
+                                   dhT.contiguous())

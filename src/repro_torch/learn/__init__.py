@@ -6,8 +6,8 @@ PyTorch stack (port of ``repro.learn``):
   examples, :mod:`forecaster` runs a small ``models/transformer.py`` stack
   (its attention through the hand flash kernel on the card) to predict gap
   quantiles, and ``core/predictors/transformer.py`` serves a checkpoint
-  behind the same protocol as the histogram/LSTM predictors.  Training it
-  comes with the training slice (ROADMAP A6);
+  behind the same protocol as the histogram/LSTM predictors;
+  ``forecaster.train_forecaster`` trains it through ``training/``;
 * an **off-policy DQN keep-alive agent** (arXiv 2308.07541 lineage):
   :mod:`gym` exposes the batch simulator's cluster step as a vectorized
   [cells, functions] environment (one hand-kernel launch an epoch on the

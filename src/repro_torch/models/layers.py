@@ -143,9 +143,12 @@ class LayerNorm(torch.autograd.Function):
         return dx, _sum_lead_f32(g * xn, scale.dtype), _sum_lead_f32(g, scale.dtype)
 
 
-def norm_apply(params: Norm, x, kind: str):
+def norm_apply(params: Norm, x, kind: str, eps: float = 1e-6):
     """The norm; through its autograd function only where a gradient is
-    wanted (serving runs the same forward without building one)."""
+    wanted (serving runs the same forward without building one).  ``eps`` is
+    taken for the reference's signature and ignored, as there: the norms'
+    epsilon is fixed at ``_NORM_EPS``."""
+    del eps
     if kind == "rmsnorm":
         if needs_grad(x, params.scale):
             return RMSNorm.apply(x, params.scale)

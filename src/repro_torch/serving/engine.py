@@ -117,10 +117,10 @@ class SnapshotStore:
     def has_params(self, key: str) -> bool:
         return os.path.exists(self._path(key))
 
-    def save_params(self, key: str, state: Mapping[str, torch.Tensor]) -> int:
+    def save_params(self, key: str, params: Mapping[str, torch.Tensor]) -> int:
         path = self._path(key)
         tmp = f"{path}.{os.getpid()}.tmp"
-        state = {k: v.detach() for k, v in state.items()}
+        state = {k: v.detach() for k, v in params.items()}
         torch.save(state, tmp)
         os.replace(tmp, path)
         if torch.cuda.is_available():

@@ -46,18 +46,48 @@ def _array(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def save(path: str, state: Mapping[str, Any], *, extra: dict = None) -> int:
-    """Write ``state`` (dotted path -> tensor or array) and ``extra`` (JSON
-    values).  Returns the file's size in bytes."""
+def save(path: str, params: Mapping[str, Any], *, extra: dict = None) -> int:
+    """Write ``params`` (dotted path -> tensor or array, a ``state_dict``)
+    and ``extra`` (JSON values).  Returns the file's size in bytes."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    paths = list(state)
-    arrs = {f"a{i}": _array(state[p]) for i, p in enumerate(paths)}
+    paths = list(params)
+    arrs = {f"a{i}": _array(params[p]) for i, p in enumerate(paths)}
     meta = json.dumps({"format": FORMAT, "paths": paths,
-                       "bfloat16": [p for p in paths if _is_bf16(state[p])],
+                       "bfloat16": [p for p in paths if _is_bf16(params[p])],
                        "extra": extra or {}})
     with open(path, "wb") as f:
         np.savez(f, __meta_json__=np.frombuffer(meta.encode(), np.uint8), **arrs)
     return os.path.getsize(path)
+
+
+def _flatten(tree, path=""):
+    """(leaves, paths) of a tree of dicts and lists: dict keys sorted (JAX's
+    flatten order), list items in order."""
+    if isinstance(tree, Mapping):
+        pairs = [_flatten(tree[k], f"{path}{k}.") for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        pairs = [_flatten(x, f"{path}{i}.") for i, x in enumerate(tree)]
+    else:
+        return [tree], [path[:-1]]
+    return ([x for leaves, _ in pairs for x in leaves],
+            [p for _, paths in pairs for p in paths])
+
+
+def _values(x) -> np.ndarray:
+    """A leaf's values as numpy (a bf16 tensor widened to fp32: exact)."""
+    if _is_bf16(x):
+        x = x.float()
+    return _array(x)
+
+
+def tree_equal(a: Any, b: Any) -> bool:
+    """Whether ``a`` and ``b`` have one structure and equal leaves, element by
+    element, in sorted-key order (the reference's ``tree_equal``)."""
+    la, pa = _flatten(a)
+    lb, pb = _flatten(b)
+    if pa != pb or len(la) != len(lb):
+        return False
+    return all(np.array_equal(_values(x), _values(y)) for x, y in zip(la, lb))
 
 
 def is_reference(path: str) -> bool:

@@ -67,39 +67,90 @@ def init_opt_state(params) -> OptState:
     return OptState(step, zeros, tree_map(torch.zeros_like, zeros))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def global_norm(grads) -> torch.Tensor:
+    """The gradients' global norm, summed in fp32 over the leaves in
+    sorted-key order (the reference's order)."""
     total = 0
     for g in tree_leaves(grads):
         total = total + torch.sum(torch.square(g.to(torch.float32)))
-    gn = torch.sqrt(total)
-    scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-9), 1.0)
-    return tree_map(lambda g: g * scale, grads), gn
+    return torch.sqrt(total)
+
+
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-9), 1.0)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """The gradients scaled to a global norm of at most ``max_norm``, each in
+    fp32 (the reference's ``g * scale`` promotes a bf16 leaf to fp32), and
+    the norm."""
+    gn = global_norm(grads)
+    scale = _clip_scale(gn, max_norm)
+    return tree_map(lambda g: g.to(torch.float32) * scale, grads), gn
+
+
+def _terms(cfg: OptimizerConfig, params, grads, state: OptState, decay):
+    """What every leaf's update shares: the step, the global norm, the decay
+    tree (by default the leaves of two or more dims, the reference's rule on
+    its own tree) and ``_adamw``'s (scale, lr, b1t, b2t)."""
+    gnorm = global_norm(grads)
+    step = state.step + 1
+    stepf = step.to(torch.float32)
+    if decay is None:
+        decay = tree_map(lambda p: p.dim() >= 2, params)
+    return step, gnorm, decay, (_clip_scale(gnorm, cfg.clip_norm), lr_at(cfg, step),
+                                1 - torch.pow(cfg.b1, stepf), 1 - torch.pow(cfg.b2, stepf))
+
+
+def _adamw(cfg: OptimizerConfig, p, g, m, v, dec: bool, scale, lr, b1t, b2t):
+    """One leaf's (or one slice's) AdamW arithmetic: the clip's ``scale`` on
+    the fp32 gradient, the moments, the bias-corrected update, the decay
+    where ``dec``; returns the new p (in p's dtype), m and v."""
+    g = g.to(torch.float32) * scale
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * g * g
+    u = (m / b1t) / (torch.sqrt(v / b2t) + cfg.eps)
+    if dec:
+        u = u + cfg.weight_decay * p.to(torch.float32)
+    newp = p.to(torch.float32) - lr * u
+    return newp.to(p.dtype), m, v
 
 
 def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState, decay=None):
     """One AdamW step.  Returns ``(params, state, {"grad_norm", "lr"})``;
-    nothing is updated in place.  ``decay``, a tree of bools like
-    ``params``, says which leaves take weight decay; by default those of two
-    or more dims (the reference's rule on its own tree)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    step = state.step + 1
-    lr = lr_at(cfg, step)
-    stepf = step.to(torch.float32)
-    b1t = 1 - torch.pow(cfg.b1, stepf)
-    b2t = 1 - torch.pow(cfg.b2, stepf)
-
-    def upd(p, g, m, v, dec):
-        g = g.to(torch.float32)
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        u = (m / b1t) / (torch.sqrt(v / b2t) + cfg.eps)
-        if dec:
-            u = u + cfg.weight_decay * p.to(torch.float32)
-        newp = p.to(torch.float32) - lr * u
-        return newp.to(p.dtype), m, v
-
-    if decay is None:
-        decay = tree_map(lambda p: p.dim() >= 2, params)
-    out = tree_map(upd, params, grads, state.m, state.v, decay)   # (p, m, v) leaves
+    nothing is updated in place (the DQN agent keeps its target network as
+    the tree it passes in).  ``decay``, a tree of bools like ``params``,
+    says which leaves take weight decay."""
+    step, gnorm, decay, terms = _terms(cfg, params, grads, state, decay)
+    out = tree_map(lambda p, g, m, v, dec: _adamw(cfg, p, g, m, v, dec, *terms),
+                   params, grads, state.m, state.v, decay)      # (p, m, v) leaves
     new_p, new_m, new_v = (tree_map(lambda t, i=i: t[i], out) for i in range(3))
-    return new_p, OptState(step, new_m, new_v), {"grad_norm": gnorm, "lr": lr}
+    return new_p, OptState(step, new_m, new_v), {"grad_norm": gnorm, "lr": terms[1]}
+
+
+SLICE = 1 << 26   # elements of a leaf that apply_updates_ updates at once
+
+
+def apply_updates_(cfg: OptimizerConfig, params, grads, state: OptState, decay=None):
+    """:func:`apply_updates` in place: every leaf of ``params``, ``state.m``
+    and ``state.v`` is written where it lies, leaf by leaf in sorted-key
+    order and SLICE elements at a time, so that the fp32 temporaries stay
+    those of one slice (the reference's jit donates the buffers for the same
+    end).  The global norm is summed over every leaf before any is written;
+    no clipped tree is built.  The arithmetic is :func:`apply_updates`'s
+    (``_adamw``), so the two agree bit for bit.  Returns ``(params,
+    OptState(step, m, v), {"grad_norm", "lr"})`` with the same tensors."""
+    with torch.no_grad():
+        step, gnorm, decay, terms = _terms(cfg, params, grads, state, decay)
+        for p, g, m, v, dec in zip(*(tree_leaves(t) for t in (params, grads, state.m,
+                                                                state.v, decay))):
+            pf, mf, vf = (x.view(-1) for x in (p, m, v))    # raises rather than copy
+            gf = g.reshape(-1)
+            for i in range(0, pf.numel(), SLICE):
+                part = slice(i, i + SLICE)
+                newp, newm, newv = _adamw(cfg, pf[part], gf[part], mf[part], vf[part], dec,
+                                          *terms)
+                pf[part].copy_(newp)
+                mf[part].copy_(newm)
+                vf[part].copy_(newv)
+    return params, OptState(step, state.m, state.v), {"grad_norm": gnorm, "lr": terms[1]}

@@ -3,13 +3,13 @@
 ``make_train_step`` builds the ``(params, opt_state, batch) -> (params,
 opt_state, metrics)`` function: the gradient of ``bundle.loss`` with respect
 to every parameter leaf (``torch.autograd.grad`` on the leaves made to
-require grad for the step), then one AdamW update
-(``training.optimizer.apply_updates``: fp32 m / v, bf16 parameters cast
-back), written into the model in place.  Outside a step the parameters keep
-``requires_grad=False``, as serving has them.  On the card, attention runs
-forward and backward through the hand flash kernels; a kernel that has no
-backward refuses to be differentiated rather than training without a
-gradient.
+require grad for the step), then one AdamW update written in place into the
+model and the optimizer state (``training.optimizer.apply_updates_``: fp32
+m / v, bf16 parameters cast back, a slice of a leaf at a time).  Outside a
+step the parameters keep ``requires_grad=False``, as serving has them.  On
+the card, attention and the selective scan run forward and backward through
+their hand kernels; a kernel that has no backward refuses to be
+differentiated rather than training without a gradient.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch
 from repro_torch.models.convert import LAYER_STACKED, STACKED
 from repro_torch.models.registry import ModelBundle
 from repro_torch.training.optimizer import (OptimizerConfig, OptState,
-                                            apply_updates, init_opt_state)
+                                            apply_updates_, init_opt_state)
 
 
 def param_tree(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -73,12 +73,9 @@ def make_train_step(bundle: ModelBundle, opt_cfg: OptimizerConfig):
     def train_step(params: torch.nn.Module, opt_state: OptState, batch):
         loss, metrics, grads = value_and_grad(bundle, params, batch)
         tree = param_tree(params)
-        with torch.no_grad():
-            new, opt_state, opt_metrics = apply_updates(opt_cfg, tree, grads, opt_state,
-                                                        decay=decays(tree))
-            del grads
-            for name, p in tree.items():
-                p.copy_(new[name])
+        _, opt_state, opt_metrics = apply_updates_(opt_cfg, tree, grads, opt_state,
+                                                   decay=decays(tree))
+        del grads
         metrics.update(opt_metrics)
         metrics["total_loss"] = loss
         return params, opt_state, metrics

@@ -8,7 +8,9 @@ off so that the plain version's fp32 products are full fp32.  The cluster step
 is held at ``tests/test_batchsim.py``'s ``rtol=1e-4, atol=1e-2`` on random
 cohort state from ``chip_smoke.random_tables`` (a numpy copy of that test's
 fixture).  The selective scan is held at the scan's 5e-5 (fp32) and 5e-2
-(bf16 u, B, C and y), with a nonzero h0.
+(bf16 u, B, C and y), with a nonzero h0; its backward at 1e-4 (fp32, the
+flash backward's) and 5e-2 (bf16), with nonzero h0 and dhT, two calls
+bit-equal.
 """
 import importlib.util
 from pathlib import Path
@@ -471,6 +473,72 @@ def test_ssm_scan_on_cpu_tensors_launches_nothing():
     assert torch.equal(y, want_y) and torch.equal(h, want_h)
 
 
+# the scan's backward against its plain version: fp32 sums over channels and
+# time in another order (1e-4, the flash backward's); bf16 du, dB and dC are
+# one rounding of an fp32 sum (5e-2)
+SSM_BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+
+
+def _ssm_bwd_inputs(case, dtype, device, seed=0):
+    args = _ssm_inputs(*case, dtype, device, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    bt, t, din, n = case
+    dy = torch.from_numpy(rng.normal(size=(bt, t, din)).astype(np.float32)).to(device)
+    dhT = torch.from_numpy(rng.normal(size=(bt, din, n)).astype(np.float32)).to(device)
+    return args, dy.to(DTYPES[dtype]), dhT
+
+
+@pytest.mark.parametrize("case", SSM_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_bwd_kernel_matches_plain_on_card(cuda, case, dtype):
+    """The backward kernel against its plain version on the forward's
+    checkpoints, nonzero h0 and dhT; two calls bit-equal."""
+    args, dy, dhT = _ssm_bwd_inputs(case, dtype, cuda)
+    y, hT, ckpt = tssm.ssm_scan_hopper(*args, checkpoints=True)
+    before = tssm.bwd_launches
+    got = tssm.ssm_scan_bwd_hopper(*args, ckpt, dy, dhT)
+    again = tssm.ssm_scan_bwd_hopper(*args, ckpt, dy, dhT)
+    torch.cuda.synchronize()
+    assert tssm.bwd_launches == before + 2 * tssm.BWD_KERNELS
+    want = tssm.ssm_scan_bwd_plain(*args, ckpt, dy, dhT)
+    for name, a, b, w in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dh0"), got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, b), name
+        np.testing.assert_allclose(a.float().cpu().numpy(), w.float().cpu().numpy(),
+                                   err_msg=name, **SSM_BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("case", SSM_CASES[::7], ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_checkpoints_leave_the_forward_bit_equal_on_card(cuda, case, dtype):
+    """The forward with checkpoints gives serving's y and hT bit for bit, and
+    checkpoints within the scan's tolerance of the plain version's."""
+    args = _ssm_inputs(*case, dtype, cuda)
+    y, hT = tssm.ssm_scan_hopper(*args)
+    y2, hT2, ckpt = tssm.ssm_scan_hopper(*args, checkpoints=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(hT, hT2)
+    assert torch.equal(ckpt[:, 0], args[6])
+    want = tssm.ssm_scan_plain(*args, checkpoints=True)[2]
+    tol = dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" else dict(atol=5e-5, rtol=5e-5)
+    np.testing.assert_allclose(ckpt.cpu().numpy(), want.cpu().numpy(), **tol)
+
+
+def test_ssm_autograd_runs_the_backward_kernel_on_card(cuda):
+    from repro_torch.kernels import ops
+
+    (u, delta, A, B, C, D, h0), dy, dhT = _ssm_bwd_inputs((2, 70, 96, 16), "float32", cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (u, delta, A, B, C, D, h0)]
+    f0, b0 = tssm.launches, tssm.bwd_launches
+    y, hT = ops.ssm_scan(*leaves)
+    grads = torch.autograd.grad((y, hT), leaves, (dy, dhT))
+    assert (tssm.launches - f0, tssm.bwd_launches - b0) == (1, tssm.BWD_KERNELS)
+    ckpt = tssm.ssm_scan_plain(u, delta, A, B, C, D, h0, checkpoints=True)[2]
+    want = tssm.ssm_scan_bwd_plain(u, delta, A, B, C, D, h0, ckpt, dy, dhT)
+    for a, w in zip(grads, want):
+        torch.testing.assert_close(a, w, **SSM_BWD_TOL["float32"])
+
+
 def test_snapshot_restores_from_pinned_copy_and_file_agree(cuda, tmp_path):
     """The snapshot store's two restore paths give the saved tensors: the
     pinned host copy (kept at save time) and the memory-mapped file (a store
@@ -638,15 +706,6 @@ def test_kernels_with_no_backward_refuse_grad_on_card(cuda):
     from repro_torch.kernels import ops
 
     g = torch.Generator(device=cuda).manual_seed(10)
-    u = torch.randn((1, 8, 16), generator=g, device=cuda, requires_grad=True)
-    delta = torch.rand((1, 8, 16), generator=g, device=cuda)
-    A = -torch.rand((16, 4), generator=g, device=cuda)
-    B, C = (torch.randn((1, 8, 4), generator=g, device=cuda) for _ in range(2))
-    D, h0 = torch.ones(16, device=cuda), torch.zeros((1, 16, 4), device=cuda)
-    with pytest.raises(RuntimeError, match="ssm_scan has no backward kernel"):
-        ops.ssm_scan(u, delta, A, B, C, D, h0)
-    with torch.no_grad():
-        ops.ssm_scan(u, delta, A, B, C, D, h0)        # serving is untouched
     q = torch.randn((1, 4, 64), generator=g, device=cuda, requires_grad=True)
     kc = torch.randn((1, 32, 2, 64), generator=g, device=cuda)
     with pytest.raises(RuntimeError, match="decode_attention has no backward kernel"):

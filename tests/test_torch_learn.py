@@ -76,33 +76,123 @@ OPT_CONFIGS = {
                                          weight_decay=0.1, clip_norm=0.5),
     "dqn": ropt.OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=40,
                                 weight_decay=0.0),
+    # bf16 parameters and gradients, every step's grad norm above clip_norm:
+    # the reference's clip gives fp32 gradients (g * scale promotes)
+    "bf16_clipped": ropt.OptimizerConfig(lr=3e-2, warmup_steps=2, total_steps=6,
+                                         weight_decay=0.1, clip_norm=0.5),
 }
+OPT_DTYPES = {"bf16_clipped": "bfloat16"}
+
+
+def _opt_tree(rng):
+    tree = {"a": {"w": rng.normal(size=(4, 3)), "b": rng.normal(size=(3,))},
+            "z": rng.normal(size=(2, 2, 2))}
+    return jax.tree.map(lambda a: a.astype(np.float32), tree)
+
+
+def _within_one_bf16_ulp(got, want, msg):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    mag = np.maximum(np.abs(want), np.float32(2.0 ** -126))
+    ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+    assert (np.abs(got - want) <= ulp).all(), msg
 
 
 @pytest.mark.parametrize("name", list(OPT_CONFIGS))
 def test_adamw_matches_reference(name):
     rcfg = OPT_CONFIGS[name]
     tcfg = topt.OptimizerConfig(**{f: getattr(rcfg, f) for f in rcfg.__dataclass_fields__})
+    dtype = OPT_DTYPES.get(name, "float32")
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     rng = np.random.default_rng(0)
-    tree = {"a": {"w": rng.normal(size=(4, 3)).astype(np.float32),
-                  "b": rng.normal(size=(3,)).astype(np.float32)},
-            "z": rng.normal(size=(2, 2, 2)).astype(np.float32)}
-    rp = jax.tree.map(jnp.asarray, tree)
-    tp = topt.tree_map(torch.from_numpy, tree)
+    tree = _opt_tree(rng)
+    rp = jax.tree.map(lambda a: jnp.asarray(a, jdt), tree)
+    tp = topt.tree_map(lambda a: torch.from_numpy(a).to(tdt), tree)
     rs, ts = ropt.init_opt_state(rp), topt.init_opt_state(tp)
     for step in range(5):
         g = jax.tree.map(lambda a: (rng.normal(size=a.shape) * (step + 1)).astype(np.float32),
                          tree)
-        rp, rs, rinfo = ropt.apply_updates(rcfg, rp, jax.tree.map(jnp.asarray, g), rs)
-        tp, ts, tinfo = topt.apply_updates(tcfg, tp, topt.tree_map(torch.from_numpy, g), ts)
+        rp, rs, rinfo = ropt.apply_updates(rcfg, rp, jax.tree.map(
+            lambda a: jnp.asarray(a, jdt), g), rs)
+        tp, ts, tinfo = topt.apply_updates(tcfg, tp, topt.tree_map(
+            lambda a: torch.from_numpy(a).to(tdt), g), ts)
         np.testing.assert_allclose(float(tinfo["lr"]), float(rinfo["lr"]), rtol=1e-6)
         np.testing.assert_allclose(float(tinfo["grad_norm"]), float(rinfo["grad_norm"]),
                                    rtol=1e-6)
+        if dtype == "bfloat16":
+            assert float(rinfo["grad_norm"]) > rcfg.clip_norm
     assert int(ts.step) == int(rs.step) == 5
     for which, r, t in (("params", rp, tp), ("m", rs.m, ts.m), ("v", rs.v, ts.v)):
         for rl, tl in zip(jax.tree.leaves(r), topt.tree_leaves(t)):
-            np.testing.assert_allclose(tl.numpy(), np.asarray(rl), rtol=1e-6, atol=1e-6,
-                                       err_msg=which)
+            assert tl.dtype == (tdt if which == "params" else torch.float32), which
+            if which == "params" and dtype == "bfloat16":
+                _within_one_bf16_ulp(tl.float().numpy(), rl, which)
+                continue
+            np.testing.assert_allclose(tl.float().numpy(), np.asarray(rl, np.float32),
+                                       rtol=1e-6, atol=1e-6, err_msg=which)
+
+
+def test_clip_gives_fp32_gradients_like_the_reference():
+    g = {"w": np.full((3,), 1.1, np.float32)}
+    rg, _ = ropt.clip_by_global_norm(jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), g),
+                                     1.0)
+    tg, _ = topt.clip_by_global_norm({"w": torch.from_numpy(g["w"]).bfloat16()}, 1.0)
+    assert rg["w"].dtype == jnp.float32 and tg["w"].dtype == torch.float32
+    np.testing.assert_array_equal(tg["w"].numpy(), np.asarray(rg["w"]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_in_place_update_is_bit_equal_and_in_place(dtype, monkeypatch):
+    """apply_updates_ against apply_updates over three steps, one leaf
+    larger than a slice (the slice cut to 7 elements), weight decay on the
+    2+-dim leaves; every leaf of params, m and v stays where it was."""
+    monkeypatch.setattr(topt, "SLICE", 7)
+    tdt = getattr(torch, dtype)
+    cfg = topt.OptimizerConfig(lr=3e-2, warmup_steps=2, total_steps=6, clip_norm=0.5)
+    rng = np.random.default_rng(5)
+    tree = {"a": {"w": rng.normal(size=(5, 6)), "b": rng.normal(size=(3,))},
+            "z": rng.normal(size=(2, 2, 2))}
+    ref = topt.tree_map(lambda a: torch.from_numpy(a.astype(np.float32)).to(tdt), tree)
+    live = topt.tree_map(lambda t: t.clone(), ref)
+    rs, ls = topt.init_opt_state(ref), topt.init_opt_state(live)
+    ptrs = [t.data_ptr() for t in topt.tree_leaves(live) + topt.tree_leaves(ls.m)
+            + topt.tree_leaves(ls.v)]
+    for step in range(3):
+        g = topt.tree_map(lambda a: torch.from_numpy(
+            (rng.normal(size=a.shape) * (step + 1)).astype(np.float32)).to(tdt), tree)
+        ref, rs, rinfo = topt.apply_updates(cfg, ref, g, rs)
+        out, ls, linfo = topt.apply_updates_(cfg, live, g, ls)
+        assert out is live
+        assert torch.equal(rinfo["grad_norm"], linfo["grad_norm"])
+        assert torch.equal(rinfo["lr"], linfo["lr"])
+    assert int(ls.step) == int(rs.step) == 3
+    for r, t in ((ref, live), (rs.m, ls.m), (rs.v, ls.v)):
+        for a, b in zip(topt.tree_leaves(r), topt.tree_leaves(t)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert ptrs == [t.data_ptr() for t in topt.tree_leaves(live) + topt.tree_leaves(ls.m)
+                    + topt.tree_leaves(ls.v)]
+
+
+def test_dqn_update_leaves_the_target_network_unchanged():
+    """The agent aliases its target network to the params it updates: the
+    functional update must leave that tree as it was."""
+    cfg = tagent.DQNConfig()
+    opt_cfg = topt.OptimizerConfig(lr=cfg.lr, warmup_steps=0, total_steps=10,
+                                   weight_decay=0.0)
+    params = tagent.init_qnet(torch.Generator().manual_seed(0), cfg, device="cpu")
+    target = params
+    before = [t.clone() for t in topt.tree_leaves(target)]
+    rng = np.random.default_rng(6)
+    n = 32
+    batch = (torch.from_numpy(rng.normal(size=(n, tagent.OBS_DIM)).astype(np.float32)),
+             torch.from_numpy(rng.integers(0, cfg.n_actions, n).astype(np.int32)),
+             torch.from_numpy(rng.normal(size=n).astype(np.float32)),
+             torch.from_numpy(rng.normal(size=(n, tagent.OBS_DIM)).astype(np.float32)),
+             torch.zeros(n))
+    update = tagent._td_update_fn(cfg, opt_cfg)
+    new, _, _ = update(params, target, topt.init_opt_state(params), batch)
+    for t, b in zip(topt.tree_leaves(target), before):
+        assert torch.equal(t, b)
+    assert any(not torch.equal(a, b) for a, b in zip(topt.tree_leaves(new), before))
 
 
 # --------------------------------------------------------------------------- #
@@ -171,6 +261,56 @@ def test_reference_written_checkpoint_is_read_by_the_port(tmp_path):
     want = np.asarray(rfc.apply_forecaster(params, jnp.asarray(x), cfg))
     got = tfc.apply_forecaster(p, torch.from_numpy(x), tcfg).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_tree_equal_agrees_with_the_reference_on_saved_checkpoints(tmp_path):
+    """The port's tree_equal and the reference's on one tree each package
+    saved and restored: equal after the round trip, unequal after one
+    element of one leaf moves, or when a leaf is missing."""
+    from repro.training import checkpoint as rckpt
+
+    cfg = rfc.model_config(num_layers=2, d_model=16, num_heads=2, d_ff=32)
+    jtree = jax.tree.map(np.asarray, rfc.init_forecaster(jax.random.key(4), cfg,
+                                                         rfc.FeatureConfig(window=8)))
+    ttree = convert.params_from_jax(jtree)
+    rckpt.save(str(tmp_path / "ref.npz"), params=jtree)
+    tckpt.save(str(tmp_path / "port.npz"), params=ttree)
+    rback, _ = rckpt.restore(str(tmp_path / "ref.npz"))
+    tback, _ = tckpt.restore(str(tmp_path / "port.npz"))
+    assert rckpt.tree_equal(jtree, rback) and tckpt.tree_equal(ttree, tback)
+    assert tckpt.tree_equal(tback, ttree) and tckpt.tree_equal(convert.nest(ttree),
+                                                               convert.nest(dict(tback)))
+    name = sorted(ttree)[3]
+    moved = dict(tback)
+    moved[name] = moved[name].copy()
+    moved[name].flat[0] += 1.0
+    rmoved = jax.tree.map(np.copy, rback)
+    flat, treedef = jax.tree.flatten(rmoved)
+    flat[3] = flat[3].copy()
+    flat[3].flat[0] += 1.0
+    assert not rckpt.tree_equal(jtree, jax.tree.unflatten(treedef, flat))
+    assert not tckpt.tree_equal(ttree, moved)
+    assert not tckpt.tree_equal(ttree, {k: v for k, v in tback.items() if k != name})
+    assert tckpt.tree_equal({"w": torch.ones(3, dtype=torch.bfloat16)},
+                            {"w": np.ones(3, np.float32)})
+
+
+def test_reference_parameter_names_are_accepted(tmp_path):
+    """norm_apply takes the reference's eps (and ignores it, as there);
+    checkpoint.save and SnapshotStore.save_params take params= by keyword."""
+    from repro_torch.models import layers
+    from repro_torch.serving.engine import SnapshotStore
+
+    norm = layers.Norm(8, "rmsnorm", "float32", device="cpu")
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(2, 8)).astype(np.float32))
+    assert torch.equal(layers.norm_apply(norm, x, "rmsnorm", eps=1e-3),
+                       layers.norm_apply(norm, x, "rmsnorm"))
+    state = {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}
+    assert tckpt.save(str(tmp_path / "a.npz"), params=state) > 0
+    assert tckpt.tree_equal(tckpt.restore(str(tmp_path / "a.npz"))[0], state)
+    store = SnapshotStore(str(tmp_path / "snaps"))
+    assert store.save_params("k", params=state) > 0
+    assert torch.equal(store.load_params("k", torch.device("cpu"))["w"], state["w"])
 
 
 # --------------------------------------------------------------------------- #
