@@ -110,13 +110,17 @@ Phases, each fatal on failure:
                beside the plain versions, scaled_dot_product_attention's (a
                yardstick only) and the simple SIMT backward it replaced;
  19. ssm-bwd — the scan's backward kernel (csrc/ssm_scan_bwd.cu, two
-               launches: the reverse scan, the sums of its partials) against
-               its plain version on the scan phase's fixtures, N 32 and 5,
-               SMOKE jamba's train shape and the Jamba training shape (Bt 8,
-               T 256, Din 8192, N 16), fp32 (1e-4) and bf16 (5e-2), nonzero
-               h0 and dhT, each twice and bit-equal; the forward with
-               checkpoints bit-equal in y and hT to serving's; both timed at
-               the training shape (bf16) and SMOKE's (fp32) against bounds;
+               launches: the reverse scan, the sums of its partials): every
+               instantiation's registers and spills, the bf16 L 4 kernel's
+               SHFL and MUFU.EX2 counts (at most 9 shuffles a step, each
+               decay taken at most twice); against its plain version
+               on the scan phase's fixtures, N 32, 5 and 1, the ring's edges
+               (T 33, 257), unaligned rows (Din 100), SMOKE jamba's train
+               shape and the Jamba training shape (Bt 8, T 256, Din 8192, N
+               16), fp32 (1e-4) and bf16 (5e-2), nonzero h0 and dhT, each
+               twice and bit-equal; the forward with checkpoints bit-equal in
+               y and hT to serving's; both timed at the training shape (bf16)
+               and SMOKE's (fp32) against bounds and the first, simple backward;
  20. train-grad — full-width granite-3-2b in fp32 at B 8 x S 256: bundle.loss
                and every leaf's gradient through the hand kernels (flash 2 a
                layer under remat, the backward BWD_KERNELS a layer) against
@@ -309,10 +313,11 @@ TIMED = {("flash_attention", "granite", "prefill"), ("flash_attention", "jamba",
          ("decode_attention", "internvl2", "decode")}
 
 
-def _sass_counts(name: str):
-    """HGMMA and UTMALDG instructions in library ``name``'s SASS: evidence that
-    its bf16 kernels reached the tensor cores and TMA (None where cuobjdump is
-    missing)."""
+def _sass_counts(name: str, ops=("HGMMA", "UTMALDG"), kernel=None):
+    """Instructions ``ops`` in library ``name``'s SASS (None where cuobjdump
+    is missing), over every kernel or, with ``kernel``, over the kernels
+    whose mangled name matches that pattern.  HGMMA and UTMALDG: evidence that
+    the bf16 kernels reached the tensor cores and TMA."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -322,7 +327,26 @@ def _sass_counts(name: str):
         return None
     sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    if kernel is not None:
+        sass = "".join(f for f in re.split(r"\n\s*Function : ", sass)[1:]
+                       if re.search(kernel, f.split("\n", 1)[0]))
+    return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass)) for op in ops}
+
+
+def _ptxas_kernels(name: str):
+    """(mangled kernel name, registers, spill-store bytes) of every kernel in
+    library ``name``'s ptxas report."""
+    from repro_torch.kernels import _build
+
+    log = _build.log_path(name)
+    text = log.read_text() if log.exists() else ""
+    out = []
+    for part in text.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        out.append((part.split("'", 1)[0], int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) if spill else -1))
+    return out
 
 
 def kernel_phase(torch, dev):
@@ -1915,6 +1939,11 @@ BWD_TIMED = {("granite", "train", "bfloat16"), ("forecaster", "train", "float32"
 # time and states in another order (the flash backward's 1e-4); bf16 du, dB
 # and dC are one rounding of an fp32 sum
 SSM_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# the first, simple scan backward (synchronous staging, 28 shuffles a step)
+# at the Jamba training shape (bf16) and SMOKE's (fp32), device ms by graph
+# replay (this script on an H100 80GB HBM3 at 700.00 W), printed beside this
+# run's
+SIMPLE_SSM_BWD_MS = {"jamba": 0.6489, "smoke": 0.0153}
 # the hybrid family trains at full width cut to its first two layers: "MM",
 # one dense and one MoE FFN (the period is lcm(pattern, every_n_layers 2) =
 # 2 layers, the fewest), 3.742 B parameters; only depth cut, from 32
@@ -2079,10 +2108,11 @@ def _ssm_times(torch, args, ckpt, dy, dhT, got):
 
 
 def ssm_bwd_phase(torch, dev):
-    """The scan's backward kernel (csrc/ssm_scan_bwd.cu) against its plain
-    version on the scan phase's fixtures, N 32 and N 5, SMOKE jamba's train
-    shape (B 2, T 32, Din 512, N 8) and the Jamba training shape (Bt 8, T
-    256, Din 8192, N 16), fp32 and bf16, nonzero h0 and dhT, each twice and
+    """The scan's backward kernel (csrc/ssm_scan_bwd.cu): its ptxas and SASS
+    report (phase 19 above), then against its plain version on the scan
+    phase's fixtures, the extra edges, SMOKE jamba's train shape (B 2, T 32,
+    Din 512, N 8) and the Jamba training shape (Bt 8, T 256, Din 8192, N
+    16), fp32 and bf16, nonzero h0 and dhT, each twice and
     bit-equal; the forward with checkpoints bit-equal in y and hT to
     serving's forward, its checkpoints within SSM_TOL of the plain
     version's; the forward with checkpoints and the backward timed at the
@@ -2090,12 +2120,44 @@ def ssm_bwd_phase(torch, dev):
     from repro_torch.config import get_config, reduced
     from repro_torch.kernels import ssm_scan as ks
 
+    # the design as built: every instantiation's registers and spills, the
+    # bf16 L 4 kernel's shuffles and exponentials over its unrolled segment
+    built = [k for k in _ptxas_kernels("ssm_scan_bwd") if "ssm_bwd_kernel" in k[0]]
+    if len(built) != 8:
+        _fail(f"ptxas ssm_scan_bwd: {len(built)} ssm_bwd_kernel instantiations, not 8")
+    for fn, regs, spill in built:
+        kind = "bf16" if "nv_bfloat16" in fn else "fp32"
+        print(f"ptxas ssm_bwd_kernel {kind} L {re.search(r'Li(\d+)E', fn).group(1)}: "
+              f"{regs} registers, {spill} bytes spill stores")
+    sass = _sass_counts("ssm_scan_bwd", ("SHFL", "MUFU.EX2"),
+                        kernel=r"ssm_bwd_kernelI13__nv_bfloat16Li4E")
+    if sass is None:
+        print("sass ssm_bwd_kernel bf16 L 4: not measured (no cuobjdump)")
+    else:
+        # the reverse walk's segment is the one place with shuffles; the two
+        # forward walks' segments (checkpoint walk, recompute) the only ones
+        # with exponentials, which a chunk runs 1 + (NSEG - 1) / NSEG times
+        nseg = ks.CHUNK // ks.SEGMENT
+        shfl = sass["SHFL"] / ks.SEGMENT
+        walks = sass["MUFU.EX2"] / (ks.SEGMENT * ks.STATES)
+        ex2 = (1 + (nseg - 1) / nseg) if walks == 2 else float("inf")
+        print(f"sass ssm_bwd_kernel bf16 L 4: SHFL {sass['SHFL']} in its {ks.SEGMENT}-step "
+              f"segment, {shfl:.2f} a step (the simple kernel: 28); MUFU.EX2 "
+              f"{sass['MUFU.EX2']}, {walks:g} walks of {ks.SEGMENT} steps x {ks.STATES} states "
+              f"and none in the reverse walk: a decay taken {ex2:.2f} times (the simple kernel: 2.75)")
+        if shfl > 9 or ex2 > 2:
+            _fail(f"sass ssm_bwd_kernel bf16 L 4: {shfl:.2f} shuffles a step (at most 9), "
+                  f"{sass['MUFU.EX2']} MUFU.EX2 (a decay at most twice)")
+
     gen = torch.Generator(device=dev).manual_seed(2)
     full, smoke = get_config(HYBRID), reduced(get_config(HYBRID))
     jamba = (*TRAIN_SHAPE, full.ssm.expand * full.d_model, full.ssm.d_state)
     smoke_case = (*SMOKE_TRAIN_SHAPE, smoke.ssm.expand * smoke.d_model, smoke.ssm.d_state)
+    # the fixtures, N 32 and 5, the ring's edges (T 33, 257) at 1 and 8
+    # lanes a channel and ragged Din, unaligned rows at 4 lanes (Din 100)
     cases = [(2, t, din, n) for t in (1, 37, 256, 300) for din in (64, 200)
-             for n in (4, 8, 16)] + [(3, 65, 96, 32), (1, 40, 24, 5), smoke_case, jamba]
+             for n in (4, 8, 16)] + [(3, 65, 96, 32), (1, 40, 24, 5), (3, 33, 24, 1),
+                                     (3, 257, 200, 17), (2, 33, 100, 16), smoke_case, jamba]
     timed, worst = {}, {}
     for dtype in ("float32", "bfloat16"):
         for case in cases:
@@ -2135,12 +2197,14 @@ def ssm_bwd_phase(torch, dev):
                 row["max_abs_err"] = err if what == "bwd" else ck_err
                 timed[(what, key)] = row
                 extra = (f", serving's forward (no checkpoints) {row['serving_ms']:.4f} ms"
-                         if what == "fwd" else "")
+                         if what == "fwd" else
+                         f", the simple kernel {SIMPLE_SSM_BWD_MS[key]:.4f} ms "
+                         f"({SIMPLE_SSM_BWD_MS[key] / row['ms']:.2f}x)")
                 print(f"time ssm_scan {what} {dtype} ({key} shape, Bt,T,Din,N={case}): kernel "
                       f"{row['ms']:.4f} ms device (graph replay), {row['launch_ms']:.4f} ms "
                       f"launch by launch (host included){extra}; plain {row['plain_ms']:.4f} "
                       f"ms (one call), library none, bound {row['bound'][0]:.5f} ms "
-                      f"({row['bound'][1]})")
+                      f"({row['bound'][1]}, {row['ms'] / row['bound'][0]:.2f}x)")
     print(f"kernel ssm_scan_bwd: {2 * len(cases)} cases ok, each twice and bit-equal, max_abs_err "
           f"fp32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}")
     return timed

@@ -29,6 +29,22 @@ MAX_STATE = 32     # N: at most 8 lanes of 4 states a channel
 STATES = 4         # states a lane
 CHANNELS = 64      # channels a block
 CHUNK = 32         # time steps a stage of the ring holds; the checkpoints' interval
+SEGMENT = 8        # the backward's steps a segment: its states and decays in registers
+SMEM_PER_SM = 233472   # shared memory of one H100 SM, bytes (228 KB)
+SMEM_RESERVED = 1024   # of it, reserved for each resident block
+
+
+def _lanes(n: int) -> int:
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"state size N={n} not in [1, {MAX_STATE}]")
+    lanes = 1
+    while lanes * STATES < n:
+        lanes *= 2
+    return lanes
+
+
+def _round16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
 
 
 def scan_geometry(n: int, itemsize: int) -> dict:
@@ -36,17 +52,52 @@ def scan_geometry(n: int, itemsize: int) -> dict:
     ``itemsize`` bytes (``launch_l`` and ``smem_bytes`` in the source):
     lanes a channel (the power of two >= n / 4), states a lane, channels and
     threads a block, steps a chunk and the block's shared memory."""
-    if not 1 <= n <= MAX_STATE:
-        raise ValueError(f"state size N={n} not in [1, {MAX_STATE}]")
-    lanes = 1
-    while lanes * STATES < n:
-        lanes *= 2
-    raw_bc = (CHUNK * n * itemsize + 15) // 16 * 16
+    lanes = _lanes(n)
+    raw_bc = _round16(CHUNK * n * itemsize)
     stage = CHUNK * CHANNELS * (itemsize + 4) + 2 * raw_bc
     y_stride = CHANNELS + max(32 // lanes, 4)
     smem = 2 * stage + 2 * CHUNK * 2 * STATES * lanes * 4 + 2 * CHUNK * y_stride * 4
     return dict(lanes=lanes, states=STATES, channels=CHANNELS,
                 threads=CHANNELS * lanes, chunk=CHUNK, smem_bytes=smem)
+
+
+def bwd_channels(n: int) -> int:
+    """Channels a backward block (``cpb`` in ``csrc/ssm_scan_bwd.cu``): the
+    forward's 64, 32 at 8 lanes a channel (256 threads, one block an SM)."""
+    return CHANNELS // 2 if _lanes(n) == 8 else CHANNELS
+
+
+def bwd_smem(n: int, itemsize: int) -> int:
+    """Shared memory of one backward block, bytes (``smem_bytes`` in
+    ``csrc/ssm_scan_bwd.cu``)."""
+    lanes, chans = _lanes(n), bwd_channels(n)
+    threads = chans * lanes
+    np_, warps = STATES * lanes, threads // 32
+    copies = 4 if lanes <= 4 else 1      # B and C in each lane order of the states
+    work = (4 * CHUNK * (chans + 1) + 2 * copies * CHUNK * np_ + CHUNK * warps * 2 * np_
+            + (CHUNK // SEGMENT - 1) * threads * 4)
+    raw = 2 * CHUNK * chans * itemsize + CHUNK * chans * 4 + 2 * _round16(CHUNK * n * itemsize)
+    return 4 * work + raw
+
+
+def bwd_geometry(n: int, itemsize: int) -> dict:
+    """The backward kernel's launch geometry for state size ``n`` and u / B /
+    C / dy of ``itemsize`` bytes (``cpb``, ``smem_bytes`` and
+    ``min_blocks`` in ``csrc/ssm_scan_bwd.cu``): lanes a channel (the
+    forward's), channels and threads a block, steps a segment, the block's
+    shared memory (the working rows of (u, dt, dy, dt u) in fp32 with a pad,
+    B and C in fp32 in each lane order of the states, the warps' dB / dC rows
+    of a chunk, each thread's segment entry states, then one raw stage), the
+    blocks an SM its launch bounds ask for, those of them that fit the SM's
+    shared memory, and the thread-block cluster (1: none; the per-block
+    partials are summed by the second kernel)."""
+    lanes, chans, smem = _lanes(n), bwd_channels(n), bwd_smem(n, itemsize)
+    # min_blocks in the source: two where two fit at every N of these lanes
+    most = bwd_smem(STATES * lanes, itemsize)
+    bounds = 2 if lanes < 8 and most + SMEM_RESERVED <= SMEM_PER_SM // 2 else 1
+    return dict(lanes=lanes, channels=chans, threads=chans * lanes, segment=SEGMENT,
+                smem_bytes=smem, bounds_blocks=bounds,
+                blocks_per_sm=min(bounds, SMEM_PER_SM // (smem + SMEM_RESERVED)), cluster=1)
 
 
 def _step(h, df, uf, Af, Bf, t):
@@ -131,7 +182,7 @@ def n_chunks(t: int) -> int:
 def bwd_workspace(bt: int, t: int, din: int, n: int) -> int:
     """fp32 elements of the backward's scratch: the per-block dB and dC
     partials, the per-row dA and dD partials (``ssm_scan_bwd.cu``)."""
-    return 2 * (-(-din // CHANNELS)) * bt * t * n + bt * din * n + bt * din
+    return 2 * (-(-din // bwd_channels(n))) * bt * t * n + bt * din * n + bt * din
 
 
 def _check(u, delta, A, B, C, D, h0):

@@ -429,6 +429,10 @@ SSM_CASES += [(1, 512, 8192, 16), (3, 65, 96, 32), (1, 40, 24, 5)]   # jamba, N 
 # 17-32: 8) and ragged channel blocks (Din 24, 200 against 64 a block)
 SSM_CASES += [(3, t, din, n) for t in (1, 31, 32, 33, 257) for n in (1, 5, 16, 17, 32)
               for din in (24, 200)]
+# Din 100 in bf16: rows not 16-byte aligned at 4 lanes a channel (the
+# element-by-element staging of the backward's ring); the two-layer Jamba's
+# training shape
+SSM_CASES += [(2, 33, 100, 16), (2, 257, 100, 32), (8, 256, 8192, 16)]
 
 
 @pytest.mark.parametrize("case", SSM_CASES, ids=lambda c: "x".join(map(str, c)))

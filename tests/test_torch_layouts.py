@@ -3,9 +3,10 @@ on the CPU.
 
 The kernels run only on a card, but the rules that pick their layout and
 size their shared memory are pure Python (``cluster_step.layout`` /
-``smem_bytes``, ``ssm_scan.scan_geometry``), mirrored by the C side.  These
-tests hold every registered batch grid and every config with a Mamba layer
-to those rules, and the rules to the constants in the CUDA sources.
+``smem_bytes``, ``ssm_scan.scan_geometry`` and ``bwd_geometry``), mirrored
+by the C side.  These tests hold every registered batch grid and every config
+with a Mamba layer to those rules, and the rules to the constants in the CUDA
+sources.
 """
 import re
 from pathlib import Path
@@ -141,3 +142,56 @@ def test_scan_rules_match_the_source():
     c = _constants("ssm_scan")
     assert (c["CPB"], c["CHUNK"], c["STATES"], c["MAX_N"]) == \
         (ks.CHANNELS, ks.CHUNK, ks.STATES, ks.MAX_STATE)
+
+
+def test_scan_bwd_rules_match_the_source():
+    """The backward's constants and launch bounds are the ones
+    ``ssm_scan.bwd_geometry`` mirrors, and it launches no cluster."""
+    text = (CSRC / "ssm_scan_bwd.cu").read_text()
+    c = _constants("ssm_scan_bwd")
+    assert (c["CPB"], c["CHUNK"], c["SEG"], c["STATES"], c["MAX_N"]) == \
+        (ks.CHANNELS, ks.CHUNK, ks.SEGMENT, ks.STATES, ks.MAX_STATE)
+    assert (c["SMEM_PER_SM"], c["SMEM_RESERVED"]) == (ks.SMEM_PER_SM, ks.SMEM_RESERVED)
+    # two blocks an SM where two fit at the lanes' largest N, else one
+    assert "__launch_bounds__(cpb<L>() * L, min_blocks<T, L>())" in text
+    assert "L < 8 && smem_bytes<T, L>(STATES * L) + SMEM_RESERVED <= SMEM_PER_SM / 2 ? 2 : 1" \
+        in text
+    assert "return L == 8 ? CPB / 2 : CPB;" in text
+    assert "__cluster_dims__" not in text and "cudaLaunchKernelEx" not in text
+    assert ks.bwd_geometry(16, 2)["cluster"] == 1
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_scan_bwd_geometry_fits_shared_memory_at_every_state_size(itemsize):
+    """Every N 1-32 fits one block's 227 KB, and the SM's 228 KB at the blocks
+    an SM the launch bounds ask for (1 KB reserved a block); a segment holds
+    whole groups of L steps (the du / ddt reduce-scatter) and a chunk whole
+    segments."""
+    for n in range(1, ks.MAX_STATE + 1):
+        geo = ks.bwd_geometry(n, itemsize)
+        fwd = ks.scan_geometry(n, itemsize)
+        assert geo["lanes"] == fwd["lanes"], n
+        assert geo["channels"] == (ks.CHANNELS // 2 if geo["lanes"] == 8 else ks.CHANNELS), n
+        assert geo["threads"] == geo["channels"] * geo["lanes"] <= 1024, n
+        assert geo["smem_bytes"] <= MAX_SMEM, n
+        assert geo["blocks_per_sm"] * (geo["smem_bytes"] + ks.SMEM_RESERVED) \
+            <= ks.SMEM_PER_SM, n
+        assert 1 <= geo["blocks_per_sm"] <= geo["bounds_blocks"], n
+        assert geo["blocks_per_sm"] * geo["threads"] <= 2048, n
+        assert ks.CHUNK % geo["segment"] == 0 and geo["segment"] % geo["lanes"] == 0, n
+        assert geo["smem_bytes"] % 16 == 0, n
+
+
+def test_scan_bwd_geometry_covers_every_mamba_config():
+    mamba = [get_config(a) for a in ARCH_IDS if "M" in get_config(a).block_pattern]
+    assert "jamba-v0.1-52b" in {c.name for c in mamba}
+    for cfg in mamba:
+        for itemsize in (2, 4):
+            geo = ks.bwd_geometry(cfg.ssm.d_state, itemsize)
+            assert geo["blocks_per_sm"] * (geo["smem_bytes"] + ks.SMEM_RESERVED) \
+                <= ks.SMEM_PER_SM, cfg.name
+            assert (cfg.ssm.expand * cfg.d_model) % ks.CHANNELS == 0, cfg.name
+    jamba = get_config("jamba-v0.1-52b")
+    geo = ks.bwd_geometry(jamba.ssm.d_state, 2)
+    assert (jamba.ssm.expand * jamba.d_model, geo["lanes"], geo["threads"],
+            geo["blocks_per_sm"]) == (8192, 4, 256, 2)
