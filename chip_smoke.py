@@ -148,7 +148,24 @@ Phases, each fatal on failure:
                served from the engine's SnapshotStore (the trained weights
                and the trained model's tokens);
  26. guard   — decode attention on card inputs that require grad raises (it
-               has no backward kernel).
+               has no backward kernel);
+ 27. ep      — a one-rank NCCL world (a FileStore in a temporary directory):
+               the two-layer Jamba's fp32 loss and gradients at B 1 x S 2048
+               through the expert-parallel MoE under use_rules(make_rules,
+               make_host_mesh()) against the same call with no rules (phase
+               20's tolerances), then one bf16 step through the EP path, with
+               the all-reduce bytes it counted;
+ 28. dryrun  — launch/dryrun.py's spec pass over every architecture x shape
+               on both production meshes (80 records: 66 ok, 14 skipped, 0
+               errors); its meta pass of full-width granite-3-2b's and the
+               two-layer Jamba's train step at B 8 x S 256 on one chip (no
+               kernel launched), granite's argument bytes within 1% of what
+               phase 21's parameters, AdamW state and batch held on the card;
+ 29. roofline — launch/roofline.py's bound on one H100 of granite-3-2b's
+               train step, its prefill of 512 tokens and the two-layer
+               Jamba's train step, each at or below the time phases 5, 21
+               and 22 measured for it (bound, measured and their ratio
+               printed).
 The kernel phase also holds the flash kernel to its plain version at the
 forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it, and
 both attention kernels at whisper's (encoder 1500 x 1500 non-causal, cross
@@ -180,11 +197,6 @@ KERNEL_TOL = {"float32": 3e-5, "bfloat16": 5e-2}
 # model phase: fp32 logits of unit scale; the two paths run the same matmuls
 # and differ only in the attention's summation order, 40 layers deep
 MODEL_TOL = 1e-3
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
-# exponentials: the special-function units' 16 per clock per SM, 132 SMs, 1.98 GHz boost
-PEAK_EXPS = 16 * 132 * 1.98e9
 # the selective scan vs its plain version: tests/test_kernels.py's scan tolerance
 # (fp32); bf16 is one rounding of y, held at the attention kernels' 5e-2
 SSM_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
@@ -257,13 +269,14 @@ def _attn_times(torch, kernel, plain, library):
                 library_ms=_graph_ms(torch, library), launch_ms=_time_ms(torch, kernel))
 
 
-def _bound(flops: float, nbytes: float, dtype: str, exps: float = 0.0):
-    """Least ms for the work: bytes over HBM's rate against operations, which
-    are the larger of the FLOPs over the dtype's peak and the exponentials
-    over the special-function units' rate."""
-    t_ops = max(flops / PEAK_FLOPS[dtype], exps / PEAK_EXPS)
-    t_bytes = nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+def _bound(work):
+    """Least ms for a kernel call's work (``launch/roofline.py``: its FLOPs,
+    exponentials and bytes against the H100 SXM data sheet's peaks, the
+    formulas the roofline also reads) and which of the two bounds it."""
+    from repro_torch.launch import roofline
+
+    s, by = roofline.bound(work)
+    return s * 1e3, by
 
 
 def _nbytes(*tensors) -> int:
@@ -354,6 +367,7 @@ def kernel_phase(torch, dev):
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels.ref import attention_mask
+    from repro_torch.launch import roofline
 
     gen = torch.Generator(device=dev).manual_seed(0)
     timed = {}
@@ -383,8 +397,8 @@ def kernel_phase(torch, dev):
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 timed[("flash_attention", shape, name)] = dict(
                     max_abs_err=err, label=f"Sq {sq}, Skv {skv}, causal {causal}",
-                    bound=_bound(4.0 * pairs * hq * d, _nbytes(q, k, v, got, q_pos, kv_pos),
-                                 dtype),
+                    bound=_bound(roofline.flash_work(1, sq, skv, hq, hkv, d,
+                                                     q.element_size(), pairs)),
                     **_attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, **args),
                                   lambda: kf.flash_attention_plain(q, k, v, **args),
                                   lambda: F.scaled_dot_product_attention(
@@ -414,13 +428,12 @@ def kernel_phase(torch, dev):
                 _fail(f"decode_attention {dtype} {shape} {name} disagrees with its plain version")
             if dtype == "bfloat16" and ("decode_attention", shape, name) in TIMED:
                 n_valid = mask.sum().item()
-                kv_rows = n_valid * hkv * d * k.element_size()
                 qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
                 amask = mask[:, None, None, :]
                 timed[("decode_attention", shape, name)] = dict(
                     max_abs_err=err, label=f"S {s}, {n_valid} valid",
-                    bound=_bound(4.0 * n_valid * hq * d,
-                                 _nbytes(q, got, mask) + 2 * kv_rows, dtype),
+                    bound=_bound(roofline.decode_work(1, s, hq, hkv, d, k.element_size(),
+                                                      n_valid)),
                     **_attn_times(torch, lambda: kd.decode_attention_hopper(q, k, v, mask),
                                   lambda: kd.decode_attention_plain(q, k, v, mask),
                                   lambda: F.scaled_dot_product_attention(
@@ -457,6 +470,7 @@ def ssm_kernel_phase(torch, dev):
     """The selective scan against its plain version: ragged fixtures, then the
     one-period Jamba prefill shape (Bt 1, T 512, Din 8192, N 16), timed."""
     from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.launch import roofline
 
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [(2, t, din, n) for t in (1, 37, 256, 300) for din in (64, 200)
@@ -484,14 +498,13 @@ def ssm_kernel_phase(torch, dev):
             ks.ssm_scan_plain(*args)
             stop.record()
             torch.cuda.synchronize()
-            t_exp = bt * t * din * n
             geo = ks.scan_geometry(n, args[0].element_size())
             row = dict(max_abs_err=err,
                        ms=_graph_ms(torch, lambda: ks.ssm_scan_hopper(*args)),
                        launch_ms=_time_ms(torch, lambda: ks.ssm_scan_hopper(*args)),
                        plain_ms=start.elapsed_time(stop), library_ms=None,
-                       bound=_bound(6.0 * t_exp, _nbytes(*args, *got), "float32",
-                                    exps=t_exp))
+                       bound=_bound(roofline.ssm_scan_work(bt, t, din, n,
+                                                           args[0].element_size())))
             print(f"time ssm_scan {dtype} (jamba shape; {geo['lanes']} lanes x "
                   f"{geo['states']} states a channel, {geo['threads']} threads, "
                   f"{geo['smem_bytes']} B shared a block): kernel {row['ms']:.4f} ms device "
@@ -605,10 +618,11 @@ def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=Non
         print(f"engine {arch} cold_start: {bd} (nvcc build {eng.build_s:.2f} s, set-up), "
               f"weights {eng.package_bytes() / 1e9:.3f} GB bf16")
         expect("cold_start (warm-up)", c, per_prefill, per_step)
-        outs = []
+        outs, prefills = [], []
         for i in range(REQUESTS):
             c = counts()
             out, st = serve(i)
+            prefills.append(st.prefill_s)
             print(f"engine {arch} serve {i}: prefill {st.prefill_s * 1e3:.2f} ms, decode "
                   f"{st.decode_s * 1e3:.2f} ms for {st.tokens} tokens "
                   f"({st.decode_s / st.tokens * 1e3:.3f} ms/token), tokens {out[0].tolist()}")
@@ -650,7 +664,8 @@ def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=Non
                   f"{size / 1e9:.3f} GB = {size / 1e9 / dl:.2f} GB/s")
             _gate_restore(f"{arch} full width", bd, bd2)
         profile_serve(torch, lambda: _wall(serve(1)[1]))
-    return {"flash_attention": total[0], "decode_attention": total[1]}
+    return {"flash_attention": total[0], "decode_attention": total[1],
+            "prefill_s": min(prefills)}
 
 
 def _gate_restore(label, cold, restore):
@@ -921,6 +936,7 @@ def _cluster_bound(args, outs, t_begin: int = 0):
     import math
 
     from repro_torch.kernels import ref as R
+    from repro_torch.launch import roofline
 
     nw, arrivals, conc, scal = args[0], args[3], args[4], args[10]
     _, f, w = nw.shape
@@ -929,7 +945,7 @@ def _cluster_bound(args, outs, t_begin: int = 0):
                  for h, dt in scal[:, [R.SC_HORIZON, R.SC_DT]].tolist())
     nbytes = (_nbytes(*(a for a in args if a is not conc), *outs)
               + active * f * conc.element_size())
-    return _bound(active * f * (70 + 22 * w), nbytes, "float32")
+    return _bound(roofline.Work(active * f * (70 + 22 * w), 0.0, nbytes, "float32"))
 
 
 def _cluster_compare(torch, name, args):
@@ -1596,6 +1612,7 @@ def forecaster_flash(torch, dev):
     SDPA timed by graph replay."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch import roofline
 
     gen = torch.Generator(device=dev).manual_seed(5)
     out = {}
@@ -1616,9 +1633,8 @@ def forecaster_flash(torch, dev):
         t = _attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, q_pos=pos, kv_pos=pos),
                         lambda: kf.flash_attention_plain(q, k, v, q_pos=pos, kv_pos=pos),
                         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-        t.update(max_abs_err=err, bound=_bound(4.0 * pairs * 4 * 8 * b,
-                                              _nbytes(q, k, v, got, pos, pos), "float32",
-                                              exps=pairs * 4 * b))
+        t.update(max_abs_err=err, bound=_bound(roofline.flash_work(b, 16, 16, 4, 4, 8, 4,
+                                                                   pairs)))
         print(f"time flash_attention fp32 (forecaster, B {b}, 4/4 heads, D 8, S 16), device "
               f"(graph replay): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
               f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms ({t['bound'][1]}); "
@@ -1969,6 +1985,7 @@ def flash_bwd_phase(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels.ref import attention_mask
+    from repro_torch.launch import roofline
 
     gen = torch.Generator(device=dev).manual_seed(12)
     timed = {}
@@ -2013,7 +2030,6 @@ def flash_bwd_phase(torch, dev):
             if (shape, name, dtype) not in BWD_TIMED:
                 continue
             pairs = attention_mask(q_pos, kv_pos, causal=causal, window=window).sum().item()
-            pairs *= b * hq
             label = f"B {b}, S {sq}, {hq}/{hkv} heads, D {d}, causal {causal}"
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             # the training path's forward: with the statistics
@@ -2023,8 +2039,8 @@ def flash_bwd_phase(torch, dev):
                                                                    enable_gqa=True))
             f.update(max_abs_err=_close(out, kf.flash_attention_plain(q, k, v, **args),
                                         KERNEL_TOL[dtype])[0], label=label,
-                     bound=_bound(4.0 * pairs * d, _nbytes(q, k, v, out, m, linv, q_pos, kv_pos),
-                                  dtype, exps=pairs))
+                     bound=_bound(roofline.flash_work(b, sq, skv, hq, hkv, d, q.element_size(),
+                                                      pairs, stats=True)))
             timed[("fwd", shape)] = f
             serving_ms = _graph_ms(torch, lambda: kf.flash_attention_hopper(q, k, v, **args))
             # SDPA's backward runs on its forward's stream, so a graph holds
@@ -2046,8 +2062,8 @@ def flash_bwd_phase(torch, dev):
                      library_ms=fwd_bwd - f["library_ms"], launch_ms=_time_ms(torch, kernel))
             # dq, dk, dv and the recomputed S, dP: five D-long products a pair
             t.update(max_abs_err=max(e for e, _ in errs), label=label,
-                     bound=_bound(10.0 * pairs * d, _nbytes(q, k, v, out, dout, m, linv, *got,
-                                                            q_pos, kv_pos), dtype, exps=pairs))
+                     bound=_bound(roofline.flash_bwd_work(b, sq, skv, hq, hkv, d,
+                                                          q.element_size(), pairs)))
             timed[("bwd", shape)] = t
             print(f"time sdpa forward + backward {dtype} ({shape} {name}) {fwd_bwd:.4f} ms, "
                   f"forward {f['library_ms']:.4f} ms (graph replay)")
@@ -2071,11 +2087,11 @@ def _ssm_times(torch, args, ckpt, dy, dhT, got):
     and every output written once, each decay's exponential once, ~14 fp32
     operations a (b, t, d, n) for the gradient's sums."""
     from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.launch import roofline
 
     u, delta, A, B, C, D, h0 = args
     bt, t, din = u.shape
     n = A.shape[1]
-    t_exp = bt * t * din * n
 
     def plain_ms(fn):
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2097,13 +2113,13 @@ def _ssm_times(torch, args, ckpt, dy, dhT, got):
                     plain_ms=plain_ms(lambda: ks.ssm_scan_plain(*args, checkpoints=True)),
                     serving_ms=_graph_ms(torch, lambda: ks.ssm_scan_hopper(*args)),
                     library_ms=None,
-                    bound=_bound(6.0 * t_exp, _nbytes(*args, y, hT, ckpt), "float32",
-                                 exps=t_exp)),
+                    bound=_bound(roofline.ssm_scan_work(bt, t, din, n, u.element_size(),
+                                                        checkpoints=True))),
         "bwd": dict(ms=_graph_ms(torch, bwd), launch_ms=_time_ms(torch, bwd),
                     plain_ms=plain_ms(lambda: ks.ssm_scan_bwd_plain(*args, ckpt, dy, dhT)),
                     library_ms=None,
-                    bound=_bound(14.0 * t_exp, _nbytes(u, delta, A, B, C, D, ckpt, dy, dhT,
-                                                       *got), "float32", exps=t_exp))}
+                    bound=_bound(roofline.ssm_scan_bwd_work(bt, t, din, n,
+                                                            u.element_size())))}
     return rows
 
 
@@ -2317,7 +2333,9 @@ def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None):
     forward 2 a step under remat, its backward kernels once), falling finite
     losses, ms per step, tokens/s and peak memory (``before``: an earlier
     run's, printed beside); then one more step traced.  Returns the run's
-    launches (``COUNTS``)."""
+    launches (``COUNTS``), its steady seconds a step and the device bytes
+    that the trained parameters, their AdamW state and a batch hold (what
+    the card holds beyond what it held before the run)."""
     import numpy as np
     from repro_torch.config import InputShape
     from repro_torch.data import pipeline
@@ -2326,6 +2344,8 @@ def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None):
     from repro_torch.training.train_loop import make_train_step, param_tree, to_device
 
     b, s = TRAIN_SHAPE
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _reset_train_counts()                              # the training path starts here
     res = run()
@@ -2354,6 +2374,8 @@ def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None):
     step = make_train_step(bundle, OptimizerConfig(lr=3e-3, warmup_steps=1, total_steps=steps))
     data = pipeline.batches(bundle.cfg, InputShape("train", s, b, "train"), seed=1)
     batch = to_device(next(data), dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
     step(params, opt_state, batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2364,7 +2386,7 @@ def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None):
                   also=("flash_fwd", "bwd_dq", "bwd_dkdv", "ssm_kernel", "ssm_bwd"))
     del params, opt_state, batch
     _free(torch)
-    return launches
+    return launches, {"step_s": steady, "held": held}
 
 
 def granite_train_phase(torch, dev):
@@ -2565,6 +2587,172 @@ def guard_phase(torch, dev):
     _fail("guard: decode_attention launched on inputs that require grad")
 
 
+# --------------------------------------------------------------------------- #
+# phases 27-29: the expert-parallel MoE on a one-rank NCCL world, the dry run
+# and the roofline (launch/{mesh,specs,dryrun,roofline}.py, sharding.py)
+# --------------------------------------------------------------------------- #
+
+# the EP gradient check's B x S: 2048 tokens, the fewest that take the EP path
+EP_SHAPE = (1, 2048)
+# the dry run's argument bytes against the card's allocation for them
+DRYRUN_TOL = 0.01
+
+
+def ep_phase(torch, dev):
+    """The two-layer Jamba through the expert-parallel MoE path on a one-rank
+    NCCL world (a FileStore in a temporary directory): its fp32 loss and
+    gradients at B 1 x S 2048 under ``use_rules(make_rules(...),
+    make_host_mesh())`` against the same call with no rules (phase 20's
+    tolerances), then one bf16 step through the EP path, with the all-reduce
+    bytes it counted."""
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.config import InputShape
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe, registry
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import (make_train_step, param_tree, to_device,
+                                                 value_and_grad)
+
+    t0 = time.perf_counter()
+    b, s = EP_SHAPE
+    shape = InputShape("ep", s, b, "train")
+    label = f"{HYBRID} x{HYBRID_TRAIN_LAYERS}"
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_host_mesh()
+            cfg = dataclasses.replace(hybrid_train_cfg(), dtype="float32", param_dtype="float32")
+            rules = sharding.make_rules(cfg, shape, mesh)
+            bundle = registry.build(cfg, max_seq=s, device=dev)
+            model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+            batch = to_device(next(pipeline.batches(cfg, shape)), dev)
+            lp, _, gp = value_and_grad(bundle, model, batch)
+            moe.allreduce_bytes.update(combine=0, backward=0)
+            with sharding.use_rules(rules, mesh):
+                le, _, ge = value_and_grad(bundle, model, batch)
+            torch.cuda.synchronize()
+            counted = dict(moe.allreduce_bytes)
+
+            def norm(g):
+                return torch.sqrt(sum(x.double().square().sum() for x in g.values())).item()
+
+            ne, np_ = norm(ge), norm(gp)
+            worst, worst_name = max((((ge[k] - gp[k]).abs().max().item()
+                                      / max(gp[k].abs().max().item(), 1e-30), k) for k in gp))
+            le, lp = le.item(), lp.item()
+            print(f"ep {label} fp32 B {b} x S {s} on a (1, 1) NCCL mesh (rules expert="
+                  f"{rules['expert']!r}): loss EP {le:.7f} single {lp:.7f} (rel "
+                  f"{abs(le - lp) / abs(lp):.2e}, tol {GRAD_TOL['loss']}); grad norm EP "
+                  f"{ne:.6f} single {np_:.6f} (rel {abs(ne - np_) / np_:.2e}, tol "
+                  f"{GRAD_TOL['norm']}); worst leaf {worst:.2e} at {worst_name} (tol "
+                  f"{GRAD_TOL['leaf']}); all-reduce bytes {counted}")
+            if not counted["combine"] or not counted["backward"]:
+                _fail(f"ep {label}: the EP path placed no all-reduce ({counted})")
+            if not (abs(le - lp) <= GRAD_TOL["loss"] * abs(lp)
+                    and abs(ne - np_) <= GRAD_TOL["norm"] * np_
+                    and worst <= GRAD_TOL["leaf"] and math.isfinite(ne)):
+                _fail(f"ep {label}: the EP path's loss or gradients disagree with the "
+                      f"single-device path's")
+            del model, gp, ge, batch
+            _free(torch)
+
+            cfg = hybrid_train_cfg()
+            bundle = registry.build(cfg, max_seq=s, device=dev)
+            model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+            opt_state = init_opt_state(param_tree(model))
+            step = make_train_step(bundle, OptimizerConfig(lr=3e-3, warmup_steps=1,
+                                                           total_steps=1))
+            batch = to_device(next(pipeline.batches(cfg, shape)), dev)
+            moe.allreduce_bytes.update(combine=0, backward=0)
+            t1 = time.perf_counter()
+            with sharding.use_rules(sharding.make_rules(cfg, shape, mesh), mesh):
+                _, _, metrics = step(model, opt_state, batch)
+            loss = metrics["total_loss"].item()
+            step_s = time.perf_counter() - t1
+            print(f"ep {label} bf16: one step through the EP path at B {b} x S {s}: loss "
+                  f"{loss:.4f}, {step_s * 1e3:.1f} ms (the first: allocator and NCCL "
+                  f"warm-up included); all-reduce bytes counted {dict(moe.allreduce_bytes)}")
+            if not math.isfinite(loss) or not moe.allreduce_bytes["combine"]:
+                _fail(f"ep {label} bf16 step: loss {loss} or no combine all-reduce")
+            del model, opt_state, batch
+            _free(torch)
+        finally:
+            dist.destroy_process_group()
+    print(f"phase ep: {time.perf_counter() - t0:.1f} s")
+
+
+def dryrun_phase(torch, granite_held, hybrid_held):
+    """The dry run: the spec pass of every (architecture, shape) on both
+    production meshes (80 records: 14 skipped, 0 errors); then the meta pass
+    of full-width granite-3-2b and of the two-layer Jamba training at B 8 x S
+    256 on one chip, with no kernel launched; granite's argument bytes held
+    within DRYRUN_TOL of what its trained parameters, AdamW state and batch
+    held on the card (``granite_held``; the Jamba's printed beside its own)."""
+    from repro_torch.config import ARCH_IDS, SHAPES, InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import one_chip
+
+    t0 = time.perf_counter()
+    results, n = dryrun.run_all(ARCH_IDS, list(SHAPES), [False, True], do_compile=False,
+                                echo=False)
+    spec_s = time.perf_counter() - t0
+    print(f"dryrun spec pass: {n['ok']} ok, {n['skipped']} skipped, {n['error']} errors / "
+          f"{len(results)} pairs in {spec_s:.2f} s")
+    if (len(results), n["ok"], n["skipped"], n["error"]) != (80, 66, 14, 0):
+        _fail(f"dryrun spec pass: {n} over {len(results)} pairs, expected 66 / 14 / 0 of 80")
+    b, s = TRAIN_SHAPE
+    shape = InputShape("train", s, b, "train")
+    before = _train_counts()
+    for label, cfg, held in ((ARCH, get_config(ARCH), granite_held),
+                             (f"{HYBRID} x{HYBRID_TRAIN_LAYERS}", hybrid_train_cfg(),
+                              hybrid_held)):
+        rec = dryrun.dry_run(cfg, shape, one_chip())
+        arg = rec["bytes_per_device"]["argument"]
+        rel = abs(held - arg) / arg
+        print(f"dryrun {label} train B {b} x S {s} on one chip: meta pass {rec['lower_s']} s, "
+              f"argument bytes {arg} ({arg / 1e9:.3f} GB) against {held} held on the card "
+              f"after its training phase (rel {rel:.2e}, tol {DRYRUN_TOL} for {ARCH})")
+        if label == ARCH and not rel <= DRYRUN_TOL:
+            _fail(f"dryrun {label}: argument bytes {arg} vs {held} on the card")
+    if _train_counts() != before:
+        _fail(f"dryrun: the meta passes launched kernels ({before} -> {_train_counts()})")
+    print(f"phase dryrun: {time.perf_counter() - t0:.1f} s")
+
+
+def roofline_phase(torch, measured):
+    """The H100 roofline (``launch/roofline.py``: the meta pass's FLOPs and
+    bytes, the hand kernels' work counted analytically) of granite-3-2b's
+    train step at B 8 x S 256, its prefill of MAX_SEQ tokens and the
+    two-layer Jamba's train step, each held at or below the time the earlier
+    phases measured for the same work (``measured``: label -> seconds)."""
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.launch import roofline
+
+    t0 = time.perf_counter()
+    b, s = TRAIN_SHAPE
+    train = InputShape("train", s, b, "train")
+    pairs = [(f"{ARCH} train", get_config(ARCH), train),
+             (f"{ARCH} prefill", get_config(ARCH), InputShape("prefill", MAX_SEQ, 1, "prefill")),
+             (f"{HYBRID} x{HYBRID_TRAIN_LAYERS} train", hybrid_train_cfg(), train)]
+    for label, cfg, shape in pairs:
+        rec = roofline.analyze(cfg, shape)
+        got = measured[label]
+        print(f"roofline {label} (B {shape.global_batch} x S {shape.seq_len}) on one H100: "
+              f"bound {rec['bound_s'] * 1e3:.3f} ms ({rec['dominant']}: compute "
+              f"{rec['compute_s'] * 1e3:.3f} ms, memory {rec['memory_s'] * 1e3:.3f} ms), "
+              f"FLOPs {rec['flops_per_device']:.4e} (by dtype {rec['flops_by_dtype']}), "
+              f"bytes {rec['bytes_per_device']:.4e} (the AdamW update's "
+              f"{rec['update_bytes_per_device']:.4e}), model FLOPs {rec['model_flops_global']:.4e}; "
+              f"measured {got * 1e3:.3f} ms; bound / measured {rec['bound_s'] / got:.3f}; "
+              f"counted in {rec['measure_s']} s")
+        if not rec["bound_s"] <= got:
+            _fail(f"roofline {label}: bound {rec['bound_s']} s above the measured {got} s")
+    print(f"phase roofline: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2632,14 +2820,19 @@ def main() -> int:
     vl = vision_phase(torch, dev)
     chain_phase(torch)
     train_grad_phase(torch, dev, get_config(ARCH), ARCH, TRAIN_SHAPE)
-    train_launches = granite_train_phase(torch, dev)
+    train_launches, granite_train = granite_train_phase(torch, dev)
     train_grad_phase(torch, dev, hybrid_train_cfg(), f"{HYBRID} x{HYBRID_TRAIN_LAYERS}",
                      HYBRID_GRAD_SHAPE)
-    hybrid_train_launches = hybrid_train_phase(torch, dev)
+    hybrid_train_launches, hybrid_train = hybrid_train_phase(torch, dev)
     fc_train_launches = forecaster_train_phase(torch, dev)
     smoke_launches = smoke_train_phase(torch, dev)
     lifecycle_phase(torch, dev)
     guard_phase(torch, dev)
+    ep_phase(torch, dev)
+    dryrun_phase(torch, granite_train["held"], hybrid_train["held"])
+    roofline_phase(torch, {f"{ARCH} train": granite_train["step_s"],
+                           f"{ARCH} prefill": launches["prefill_s"],
+                           f"{HYBRID} x{HYBRID_TRAIN_LAYERS} train": hybrid_train["step_s"]})
     # a kernel on several main paths: each path's launches (counts set to 0
     # just before it, read just after) and its numbers at that path's shape.
     # whisper's prefill runs its 32 layers' flash calls at three shapes

@@ -276,6 +276,21 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def get_shape(shape: str) -> InputShape:
+    return SHAPES[shape]
+
+
+def supports_shape(cfg: ModelConfig, shape: InputShape) -> bool:
+    """long_500k needs sub-quadratic attention (SSM/hybrid/SWA)."""
+    if shape.name != "long_500k":
+        return True
+    if cfg.family in ("ssm",):
+        return True
+    if cfg.family == "hybrid":
+        return True
+    return cfg.sliding_window is not None
+
+
 # --------------------------------------------------------------------------- #
 # Reduced (smoke) variants
 # --------------------------------------------------------------------------- #
@@ -335,3 +350,18 @@ def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,
         pat = "".join(kinds[i % len(kinds)] for i in range(layers))
         kw["block_pattern"] = pat
     return replace(cfg, **kw)
+
+
+def reduced_shape(shape: InputShape, *, seq: int = 64, batch: int = 2) -> InputShape:
+    return InputShape(shape.name + "_smoke", seq, batch, shape.kind)
+
+
+def describe(cfg: ModelConfig) -> str:
+    n = cfg.param_count()
+    na = cfg.param_count(active_only=True)
+    s = f"{cfg.name} [{cfg.family}] {cfg.num_layers}L d={cfg.d_model} " \
+        f"H={cfg.num_heads}/kv{cfg.num_kv_heads} ff={cfg.d_ff} V={cfg.vocab_size} " \
+        f"params={n/1e9:.2f}B"
+    if cfg.moe:
+        s += f" (active={na/1e9:.2f}B, {cfg.moe.num_experts}e top-{cfg.moe.top_k})"
+    return s

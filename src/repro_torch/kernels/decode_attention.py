@@ -134,11 +134,14 @@ def _sms(index: int) -> int:
 def decode_attention_hopper(q, k_cache, v_cache, valid_mask):
     """q: (B, Hq, D); caches (B, S, Hkv, D); valid_mask (B, S) -> (B, Hq, D).
 
-    A CUDA tensor goes to the hand kernel, a CPU tensor to the plain version.
+    A CUDA tensor goes to the hand kernel, a CPU tensor to the plain version,
+    a meta tensor (the dry run) to an empty output: no launch, no count.
     """
     global launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, valid_mask)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cuda or cpu, not {q.device}")
     _build.refuse_grad("decode_attention", "decode serves, it is never trained through",

@@ -164,7 +164,8 @@ def flash_attention_hopper(q, k, v, *, causal: bool = True,
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D), or with
     ``stats`` ``(out, m, linv)`` as :func:`flash_attention_plain` gives them.
 
-    A CUDA tensor goes to the hand kernel, a CPU tensor to the plain version.
+    A CUDA tensor goes to the hand kernel, a CPU tensor to the plain version,
+    a meta tensor (the dry run) to empty outputs: no launch, no count.
     The kernel writes the statistics only when asked: the instantiation that
     serving launches is the one without them.
     """
@@ -172,6 +173,13 @@ def flash_attention_hopper(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_pos=q_pos, kv_pos=kv_pos, stats=stats)
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        if not stats:
+            return out
+        b, sq, hq, _ = q.shape
+        m, linv = torch.empty((2, b, hq, sq), dtype=torch.float32, device=q.device)
+        return out, m, linv
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, q_pos, kv_pos, window)
@@ -197,11 +205,13 @@ def flash_attention_bwd_hopper(q, k, v, out, dout, m, linv, *, causal: bool = Tr
     """(dq, dk, dv) of the forward for ``dout``; ``out``, ``m`` and ``linv``
     are what the forward gave with ``stats=True``.  A CUDA tensor goes to the
     hand kernel (BWD_KERNELS launches), a CPU tensor to
-    :func:`flash_attention_bwd_plain`."""
+    :func:`flash_attention_bwd_plain`, a meta tensor to empty gradients."""
     global bwd_launches
     args = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, m, linv, **args)
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, q_pos, kv_pos, window)

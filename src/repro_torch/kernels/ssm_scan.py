@@ -217,12 +217,20 @@ def _check(u, delta, A, B, C, D, h0):
 
 def ssm_scan_hopper(u, delta, A, B, C, D, h0, *, checkpoints: bool = False):
     """See :func:`ssm_scan_plain`.  A CUDA tensor goes to the hand kernel, a
-    CPU tensor to the plain version.  The kernel writes the checkpoints only
-    when asked: the instantiation that serving launches is the one without
-    them."""
+    CPU tensor to the plain version, a meta tensor (the dry run) to empty
+    outputs with no launch and no count.  The kernel writes the checkpoints
+    only when asked: the instantiation that serving launches is the one
+    without them."""
     global launches
     if u.device.type == "cpu":
         return ssm_scan_plain(u, delta, A, B, C, D, h0, checkpoints=checkpoints)
+    if u.device.type == "meta":
+        y, hT = torch.empty_like(u), torch.empty_like(h0)
+        if not checkpoints:
+            return y, hT
+        bt, t, din = u.shape
+        return y, hT, torch.empty((bt, n_chunks(t), din, A.shape[1]), dtype=torch.float32,
+                                  device=u.device)
     if u.device.type != "cuda":
         raise ValueError(f"the selective scan runs on cuda or cpu, not {u.device}")
     _check(u, delta, A, B, C, D, h0)
@@ -247,10 +255,12 @@ def ssm_scan_bwd_hopper(u, delta, A, B, C, D, h0, ckpt, dy, dhT):
     """(du, ddelta, dA, dB, dC, dD, dh0) of the forward for ``dy`` and
     ``dhT``; ``ckpt`` is what the forward gave with ``checkpoints=True``.  A
     CUDA tensor goes to the hand kernel (BWD_KERNELS launches), a CPU tensor
-    to :func:`ssm_scan_bwd_plain`."""
+    to :func:`ssm_scan_bwd_plain`, a meta tensor to empty gradients."""
     global bwd_launches
     if u.device.type == "cpu":
         return ssm_scan_bwd_plain(u, delta, A, B, C, D, h0, ckpt, dy, dhT)
+    if u.device.type == "meta":
+        return tuple(torch.empty_like(x) for x in (u, delta, A, B, C, D, h0))
     if u.device.type != "cuda":
         raise ValueError(f"the selective scan runs on cuda or cpu, not {u.device}")
     _check(u, delta, A, B, C, D, h0)

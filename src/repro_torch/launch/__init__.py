@@ -1,1 +1,2 @@
-"""Launchers (port of ``repro.launch``): the serve entrypoint."""
+"""Launchers (port of ``repro.launch``): serve, train, the meshes, the
+partition specs, the dry run and the roofline."""

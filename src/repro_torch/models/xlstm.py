@@ -34,6 +34,15 @@ def _dims(cfg):
     return d_in, h, d_in // h
 
 
+def _walk(x, t: int) -> int:
+    """The time steps a full-sequence loop walks: all ``t``, or one on a meta
+    tensor (the dry run), whose shapes do not depend on the walk's length.
+    Every meta op still costs host Python time, and a walk of every step is
+    ~20 ops a step and layer over up to 524288 steps; the roofline counts
+    the recurrence analytically."""
+    return 1 if x.device.type == "meta" else t
+
+
 def _full(shape, value, *, device):
     return layers._param(torch.full(shape, value, dtype=torch.float32, device=device))
 
@@ -117,11 +126,11 @@ def mlstm_forward(p: MLSTM, x, cfg, *, state=None):
     carry = (state["C"], state["n"], state["m"])
     q, k, v = q.float(), k.float(), v.float()
     hs = []
-    for i in range(t):
+    for i in range(_walk(x, t)):
         carry, h_t = _mlstm_step(carry, q[:, i], k[:, i], v[:, i],
                                  log_i[:, i], log_f[:, i])
         hs.append(h_t)
-    hs = torch.stack(hs, dim=1).reshape(b, t, d_in).to(x.dtype)
+    hs = torch.stack(hs, dim=1).expand(b, t, h, dh).reshape(b, t, d_in).to(x.dtype)
     y = (hs + xs * p.skip[None, None]) * F.silu(z)
     C, n, m = carry
     return y @ p.down, {"C": C, "n": n, "m": m}
@@ -219,10 +228,10 @@ def slstm_forward(p: SLSTM, x, cfg, *, state=None):
     h_t = state["h"]
     xf = xs.float()
     hs = []
-    for i in range(t):
+    for i in range(_walk(x, t)):
         carry, h_t = _slstm_step(p, carry, xf[:, i], h_t.reshape(b, h, dh))
         hs.append(h_t)
-    y = torch.stack(hs, dim=1).to(x.dtype) * F.silu(z)
+    y = torch.stack(hs, dim=1).expand(b, t, h * dh).to(x.dtype) * F.silu(z)
     c, n, m = carry
     return y @ p.down, {"c": c, "n": n, "m": m, "h": h_t}
 

@@ -3,14 +3,17 @@
 The cache tensors themselves live in the model bundles (ring buffers for SWA
 archs, recurrent states for SSM/xLSTM, whisper's fixed cross-attention
 caches — see models/attention.py and models/encdec.py); this module provides
-the capacity math the autoscaler and the RQ2 'memory' factor study need.
-The dry-run's cache specs come with the launch slice.
+the capacity math the autoscaler and the RQ2 'memory' factor study need,
+and the caches themselves as meta tensors (:func:`caches_spec`: shapes and
+dtypes, no storage), whose bytes :func:`cache_bytes` counts and whose
+partition specs ``launch.specs.caches_shardings`` gives.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from repro_torch.config import InputShape, ModelConfig
+from repro_torch.models import registry
 from repro_torch.models.registry import resolve_window
 
 
@@ -43,6 +46,14 @@ def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int,
         total += (cfg.num_layers * 2 * batch * cfg.encoder.num_frames
                   * cfg.num_kv_heads * cfg.head_dim * itemsize)
     return total
+
+
+def caches_spec(cfg: ModelConfig, batch: int, seq_len: int,
+                shape: Optional[InputShape] = None):
+    """The decode caches :func:`cache_bytes` counts, as meta tensors in the
+    models' layout (one entry a layer)."""
+    return registry._init_caches(cfg, batch, seq_len, resolve_window(cfg, shape),
+                                 device="meta")
 
 
 def param_bytes(cfg: ModelConfig) -> int:

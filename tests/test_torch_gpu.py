@@ -752,3 +752,93 @@ def test_smoke_train_step_card_matches_cpu(cuda):
     for name, p in p_card.state_dict().items():
         np.testing.assert_allclose(p.cpu().numpy(), p_host.state_dict()[name].numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def _meta_kernel_calls(device):
+    """Every kernel wrapper (and both autograd Functions, forward and
+    backward) on small tensors on ``device``: their outputs."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(14)
+
+    def t(*shape, dtype=torch.float32, grad=False):
+        return torch.randn(shape, generator=g, dtype=dtype).to(device).requires_grad_(grad)
+
+    q, k, v = t(1, 64, 4, 64), t(1, 64, 2, 64), t(1, 64, 2, 64)
+    pos = torch.arange(64, dtype=torch.int32).to(device)
+    out = {"flash": tflash.flash_attention_hopper(q, k, v, q_pos=pos, kv_pos=pos)}
+    o, m, linv = tflash.flash_attention_hopper(q, k, v, q_pos=pos, kv_pos=pos, stats=True)
+    out["flash_stats"] = (o, m, linv)
+    out["flash_bwd"] = tflash.flash_attention_bwd_hopper(q, k, v, o, o, m, linv, q_pos=pos,
+                                                         kv_pos=pos)
+    mask = torch.ones((1, 64), dtype=torch.bool).to(device)
+    out["decode"] = tdecode.decode_attention_hopper(q[:, 0].contiguous(), k, v, mask)
+    u, B, C = t(2, 40, 16), t(2, 40, 4), t(2, 40, 4)
+    delta, A, D, h0 = t(2, 40, 16).abs() * 0.1, -t(16, 4).abs(), t(16), t(2, 16, 4)
+    y, hT, ckpt = tssm.ssm_scan_hopper(u, delta, A, B, C, D, h0, checkpoints=True)
+    out["ssm"] = (y, hT, ckpt)
+    out["ssm_bwd"] = tssm.ssm_scan_bwd_hopper(u, delta, A, B, C, D, h0, ckpt, y, hT)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    ops.flash_attention(qg, kg, vg).sum().backward()
+    out["flash_autograd"] = (qg.grad, kg.grad, vg.grad)
+    ug = u.detach().requires_grad_(True)
+    ops.ssm_scan(ug, delta, A, B, C, D, h0)[0].sum().backward()
+    out["ssm_autograd"] = (ug.grad,)
+    return out
+
+
+def _counts():
+    return (tflash.launches, tflash.bwd_launches, tdecode.launches, tssm.launches,
+            tssm.bwd_launches)
+
+
+def test_meta_branches_launch_nothing_on_card(cuda):
+    """On the card's CUDA build, every wrapper and autograd Function on meta
+    tensors gives the plain version's shapes and dtypes and launches
+    nothing."""
+    tflash.library(), tssm.library()                   # the libraries are built
+    before = _counts()
+    meta = _meta_kernel_calls("meta")
+    assert _counts() == before
+    cpu = _meta_kernel_calls("cpu")
+    for name, got in meta.items():
+        got = got if isinstance(got, tuple) else (got,)
+        want = cpu[name] if isinstance(cpu[name], tuple) else (cpu[name],)
+        assert [(x.shape, x.dtype, x.device.type) for x in got] == \
+            [(x.shape, x.dtype, "meta") for x in want], name
+
+
+def test_ep_one_rank_nccl_matches_single_device_on_card(cuda, tmp_path):
+    """SMOKE jamba's loss and gradients through the expert-parallel MoE on a
+    one-rank NCCL world equal the single-device path's (B 1 x S 2048 takes
+    the EP path)."""
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.config import InputShape
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe, registry
+    from repro_torch.training.train_loop import to_device, value_and_grad
+
+    bundle = registry.build_arch("jamba-v0.1-52b", smoke=True, max_seq=2048, device=cuda)
+    cfg = bundle.cfg
+    shape = InputShape("ep", 2048, 1, "train")
+    model = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = to_device(next(pipeline.batches(cfg, shape)), cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        rules = sharding.make_rules(cfg, shape, mesh)
+        assert rules["expert"] == "model"
+        loss, _, grads = value_and_grad(bundle, model, batch)
+        moe.allreduce_bytes.update(combine=0, backward=0)
+        with sharding.use_rules(rules, mesh):
+            ep_loss, _, ep_grads = value_and_grad(bundle, model, batch)
+        assert moe.allreduce_bytes["combine"] > 0 and moe.allreduce_bytes["backward"] > 0
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(ep_loss.item(), loss.item(), rtol=1e-6)
+    for name, g in grads.items():
+        np.testing.assert_allclose(ep_grads[name].cpu().numpy(), g.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)

@@ -77,7 +77,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.models.encdec", "repro_torch.serving.kvcache",
                  # the training slice
                  "repro_torch.data", "repro_torch.data.pipeline",
-                 "repro_torch.training.train_loop", "repro_torch.launch.train"):
+                 "repro_torch.training.train_loop", "repro_torch.launch.train",
+                 # the launch, sharding and dry-run slice
+                 "repro_torch.sharding", "repro_torch.launch.mesh",
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.roofline"):
         assert name in got["modules"]
 
 
