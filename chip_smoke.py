@@ -165,7 +165,19 @@ Phases, each fatal on failure:
                train step, its prefill of 512 tokens and the two-layer
                Jamba's train step, each at or below the time phases 5, 21
                and 22 measured for it (bound, measured and their ratio
-               printed).
+               printed);
+ 30. gspmd   — the GSPMD path (sharding.logical as DTensor placements, the
+               parameters and batches placed by launch/specs.py, the hand
+               kernels through local_map) on a one-rank NCCL world with a
+               (1, 1) ("data", "model") mesh: c. granite-3-2b's bf16 512-token
+               prefill against the plain prefill (logits and caches, 40 flash
+               launches); a. granite fp32 at B 1 x S 256, loss and every
+               gradient against phase 20's path (its tolerances; the largest
+               difference printed); b. one bf16 train step at B 8 x S 256,
+               launches equal to phase 21's a step, its ms beside phase 21's
+               (DTensor's host cost, no gate); d. SMOKE jamba (AM) fp32, the
+               loss and gradients on the card through DTensor against the
+               CPU, the scan and its backward counted.
 The kernel phase also holds the flash kernel to its plain version at the
 forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it, and
 both attention kernels at whisper's (encoder 1500 x 1500 non-causal, cross
@@ -2753,6 +2765,242 @@ def roofline_phase(torch, measured):
     print(f"phase roofline: {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------- #
+# phase 30: the GSPMD path (sharding.logical as DTensor placements, the hand
+# kernels through local_map) on a one-rank NCCL world
+# --------------------------------------------------------------------------- #
+
+GSPMD_GRAD_SHAPE = (1, 256)    # phase a's B x S (fp32)
+GSPMD_PROMPT = 512             # phase c's prompt, the engine's max_seq
+# phase c: the DTensor path runs prefill's ops on the same bf16 operands; held
+# at the attention kernels' bf16 tolerance, of the logits' largest magnitude
+GSPMD_PREFILL_TOL = 5e-2
+
+
+def _gspmd_place(model, batch, rules, mesh):
+    """``model``'s parameters (in place) and ``batch`` as DTensors placed by
+    ``launch/specs.py``'s specs."""
+    from repro_torch.launch import specs
+
+    specs.distribute_params(model, rules, mesh)
+    return specs.distribute_batch(batch, rules, mesh)
+
+
+def _second_call_ms(torch, call):
+    """The host-clock ms of the second of two ``call()``s (the first warms)."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _grad_gap(torch, got, want):
+    """(loss, norm, largest leaf) gaps of DTensor ``got`` = (loss, grads)
+    against plain ``want``: relative, and the largest absolute difference."""
+    (lg, gg), (lw, gw) = got, want
+    gg = {k: v.full_tensor() for k, v in gg.items()}
+
+    def norm(g):
+        return torch.sqrt(sum(x.double().square().sum() for x in g.values())).item()
+
+    worst, name, diff = 0.0, "", 0.0
+    for k in gw:
+        d = (gg[k].float() - gw[k].float()).abs().max().item()
+        r = d / max(gw[k].abs().max().item(), 1e-30)
+        diff = max(diff, d)
+        if r >= worst:
+            worst, name = r, k
+    lg, lw, ng, nw = float(lg), float(lw), norm(gg), norm(gw)
+    return {"loss": abs(lg - lw) / abs(lw), "norm": abs(ng - nw) / nw, "leaf": worst,
+            "leaf_name": name, "max_abs_diff": max(diff, abs(lg - lw)), "losses": (lg, lw)}
+
+
+def gspmd_phase(torch, dev, granite_step_s):
+    """Phase 30: the GSPMD path on a one-rank NCCL world (a FileStore in a
+    temporary directory) with a (1, 1) ("data", "model") mesh: the
+    parameters and batches are DTensors, so DTensor's dispatch, the models'
+    ``logical`` redistributions and the kernels' ``local_map`` routes run.
+    c: full-width granite-3-2b's bf16 512-token prefill, logits and caches
+    against the plain prefill on the same weights (40 flash launches);
+    a: full-width granite in fp32 at B 1 x S 256, the loss and every
+    gradient against phase 20's path on the same weights (phase 20's
+    tolerances; bit-equal expected, the largest difference printed);
+    b: one bf16 train step of full-width granite at B 8 x S 256 through
+    ``make_train_step``, launches equal to phase 21's a step, its ms beside
+    phase 21's (DTensor's host cost, no gate);
+    d: SMOKE jamba (AM) in fp32, loss and gradients on the card through the
+    DTensor path against the CPU's plain path, the scan and its backward
+    counted through ``local_map``.  Returns the numbers printed."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import sharding
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch import specs
+    from repro_torch.models import registry
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import (make_train_step, param_tree, to_device,
+                                                 value_and_grad)
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+            # c: bf16 prefill
+            cfg = get_config(ARCH)
+            shape = InputShape("prefill", GSPMD_PROMPT, 1, "prefill")
+            bundle = registry.build(cfg, shape, max_seq=GSPMD_PROMPT, device=dev)
+            model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+            gen = torch.Generator(device=dev).manual_seed(3)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, GSPMD_PROMPT), device=dev,
+                                             generator=gen, dtype=torch.int32)}
+            with torch.no_grad():
+                want, want_caches, _ = bundle.prefill(model, batch)
+                plain_ms = _second_call_ms(torch, lambda: bundle.prefill(model, batch))
+            rules = sharding.make_rules(cfg, shape, mesh)
+            placed = _gspmd_place(model, batch, rules, mesh)
+            kf.launches = 0
+            with sharding.use_rules(rules, mesh), torch.no_grad():
+                got, got_caches, pos = bundle.prefill(model, placed)
+                got = got.full_tensor()
+                flash = kf.launches
+                dtensor_ms = _second_call_ms(torch, lambda: bundle.prefill(model, placed))
+            diff = (got.float() - want.float()).abs().max().item()
+            cache_diff = max((g[k].full_tensor().float() - w[k].float()).abs().max().item()
+                             for g, w in zip(got_caches, want_caches) for k in w)
+            scale = want.float().abs().max().item()
+            out["prefill"] = {"max_abs_diff": diff, "cache_max_abs_diff": cache_diff,
+                              "ms": dtensor_ms, "plain_ms": plain_ms, "flash": flash}
+            print(f"gspmd c {ARCH} bf16 prefill of {GSPMD_PROMPT} tokens on a (1, 1) NCCL mesh "
+                  f"through DTensor: logits max|diff| {diff:.3e} against the plain prefill "
+                  f"(max|logit| {scale:.3f}, tol {GSPMD_PREFILL_TOL} of it), caches max|diff| "
+                  f"{cache_diff:.3e}; {dtensor_ms:.1f} ms a prefill through DTensor, "
+                  f"{plain_ms:.1f} plain (each the second of two calls); flash launches "
+                  f"{flash} (expected {cfg.num_layers}); next position {pos}")
+            if not (diff <= GSPMD_PREFILL_TOL * scale and cache_diff <= GSPMD_PREFILL_TOL
+                    * max(w[k].float().abs().max().item() for w in want_caches for k in w)
+                    and math.isfinite(diff)):
+                _fail("gspmd c: the DTensor prefill disagrees with the plain prefill")
+            if flash != cfg.num_layers:
+                _fail(f"gspmd c: {flash} flash launches, expected {cfg.num_layers}")
+            del model, placed, want, got, want_caches, got_caches
+            _free(torch)
+
+            # a: fp32 loss and gradients
+            cfg = dataclasses.replace(get_config(ARCH), dtype="float32", param_dtype="float32")
+            b, s = GSPMD_GRAD_SHAPE
+            shape = InputShape("train", s, b, "train")
+            bundle = registry.build(cfg, max_seq=s, device=dev)
+            model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+            batch = to_device(next(pipeline.batches(cfg, shape)), dev)
+            lp, _, gp = value_and_grad(bundle, model, batch)
+            rules = sharding.make_rules(cfg, shape, mesh)
+            placed = _gspmd_place(model, batch, rules, mesh)
+            _reset_train_counts()
+            with sharding.use_rules(rules, mesh):
+                ld, _, gd = value_and_grad(bundle, model, placed)
+            torch.cuda.synchronize()
+            launches, want = _train_counts(), _train_want(cfg, 1)
+            gap = _grad_gap(torch, (ld, gd), (lp, gp))
+            out["grad"] = gap
+            print(f"gspmd a {ARCH} fp32 B {b} x S {s}: loss DTensor {gap['losses'][0]:.7f} "
+                  f"plain {gap['losses'][1]:.7f} (rel {gap['loss']:.2e}, tol "
+                  f"{GRAD_TOL['loss']}); grad norm rel {gap['norm']:.2e} (tol "
+                  f"{GRAD_TOL['norm']}); worst leaf {gap['leaf']:.2e} at {gap['leaf_name']} "
+                  f"(tol {GRAD_TOL['leaf']}); largest difference of the loss and every "
+                  f"gradient {gap['max_abs_diff']:.3e} ({'bit-equal' if gap['max_abs_diff'] == 0 else 'not bit-equal'}); "
+                  f"launches {COUNTS} {launches} (expected {want}); {len(gp)} leaves")
+            if not (gap["loss"] <= GRAD_TOL["loss"] and gap["norm"] <= GRAD_TOL["norm"]
+                    and gap["leaf"] <= GRAD_TOL["leaf"]):
+                _fail("gspmd a: the DTensor path's loss or gradients disagree with phase 20's")
+            if launches != want:
+                _fail(f"gspmd a: launches {launches} != {want}")
+            del model, placed, gp, gd
+            _free(torch)
+
+            # b: one bf16 train step at phase 21's shape
+            cfg = get_config(ARCH)
+            b, s = TRAIN_SHAPE
+            shape = InputShape("train", s, b, "train")
+            bundle = registry.build(cfg, max_seq=s, device=dev)
+            model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+            rules = sharding.make_rules(cfg, shape, mesh)
+            data = pipeline.batches(cfg, shape, seed=1)
+            batches = [_gspmd_place(model, to_device(next(data), dev), rules, mesh),
+                       specs.distribute_batch(to_device(next(data), dev), rules, mesh)]
+            opt_state = init_opt_state(param_tree(model))
+            step = make_train_step(bundle, OptimizerConfig(lr=3e-3, warmup_steps=1,
+                                                           total_steps=2))
+            torch.cuda.reset_peak_memory_stats()
+            with sharding.use_rules(rules, mesh):
+                _, opt_state, m0 = step(model, opt_state, batches[0])   # warm-up
+                torch.cuda.synchronize()
+                _reset_train_counts()
+                t1 = time.perf_counter()
+                _, opt_state, m1 = step(model, opt_state, batches[1])
+                torch.cuda.synchronize()
+            step_s = time.perf_counter() - t1
+            launches, want = _train_counts(), _train_want(cfg, 1)
+            losses = (float(m0["loss"]), float(m1["loss"]))
+            out["step"] = {"ms": step_s * 1e3, "launches": launches,
+                           "phase21_ms": None if granite_step_s is None else granite_step_s * 1e3}
+            was = ("not run" if granite_step_s is None
+                   else f"{granite_step_s * 1e3:.1f} ms a step (phase 21, after its step 1)")
+            print(f"gspmd b {ARCH} bf16 B {b} x S {s}: one train step through DTensor "
+                  f"{step_s * 1e3:.1f} ms after a warm-up step, beside {was}; losses {losses}; "
+                  f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+                  f"{COUNTS} {launches} (expected {want}, phase 21's a step)")
+            if launches != want or not all(map(math.isfinite, losses)):
+                _fail(f"gspmd b: launches {launches} != {want} or losses {losses}")
+            del model, opt_state, batches
+            _free(torch)
+
+            # d: SMOKE jamba (AM), card through DTensor vs the CPU
+            b, s = SMOKE_TRAIN_SHAPE
+            host = registry.build_arch(HYBRID, smoke=True, max_seq=s, device="cpu")
+            card = registry.build_arch(HYBRID, smoke=True, max_seq=s, device=dev)
+            cfg = host.cfg
+            shape = InputShape("train", s, b, "train")
+            p_host = host.init(torch.Generator().manual_seed(0))
+            p_card = card.empty()
+            p_card.load_state_dict({k: v.to(dev, copy=True)
+                                    for k, v in p_host.state_dict().items()}, assign=True)
+            batch = next(pipeline.batches(cfg, shape))
+            lh, _, gh = value_and_grad(host, p_host, to_device(batch, torch.device("cpu")))
+            rules = sharding.make_rules(cfg, shape, mesh)
+            placed = _gspmd_place(p_card, to_device(batch, dev), rules, mesh)
+            _reset_train_counts()
+            with sharding.use_rules(rules, mesh):
+                lc, _, gc = value_and_grad(card, p_card, placed)
+            torch.cuda.synchronize()
+            launches, want = _train_counts(), _train_want(cfg, 1)
+            gap = _grad_gap(torch, (lc, gc), (lh, {k: v.to(dev) for k, v in gh.items()}))
+            out["smoke"] = gap
+            print(f"gspmd d {HYBRID} SMOKE ({cfg.layer_pattern}) fp32 B {b} x S {s}: loss card "
+                  f"DTensor {gap['losses'][0]:.7f} CPU {gap['losses'][1]:.7f} (tol "
+                  f"{SMOKE_TRAIN_TOL}); worst leaf {gap['leaf']:.2e} at {gap['leaf_name']} (tol "
+                  f"{GRAD_TOL['leaf']}); launches {COUNTS} {launches} (expected {want})")
+            lg, lw = gap["losses"]
+            if not (abs(lg - lw) <= SMOKE_TRAIN_TOL * (1.0 + abs(lw))
+                    and gap["leaf"] <= GRAD_TOL["leaf"]):
+                _fail("gspmd d: the card's DTensor loss or gradients disagree with the CPU's")
+            if launches != want or not launches[2]:
+                _fail(f"gspmd d: launches {launches} != {want}")
+            del p_card, placed, gc
+            _free(torch)
+        finally:
+            dist.destroy_process_group()
+    print(f"phase gspmd: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2833,6 +3081,7 @@ def main() -> int:
     roofline_phase(torch, {f"{ARCH} train": granite_train["step_s"],
                            f"{ARCH} prefill": launches["prefill_s"],
                            f"{HYBRID} x{HYBRID_TRAIN_LAYERS} train": hybrid_train["step_s"]})
+    gspmd_phase(torch, dev, granite_train["step_s"])
     # a kernel on several main paths: each path's launches (counts set to 0
     # just before it, read just after) and its numbers at that path's shape.
     # whisper's prefill runs its 32 layers' flash calls at three shapes

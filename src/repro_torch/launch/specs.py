@@ -18,13 +18,19 @@ Layout summary:
 
 :func:`local_shape` gives a leaf's per-device shape under a spec, padded as
 GSPMD pads an uneven split (granite's vocab of 49155 over 16 ranks).
+
+:func:`distribute_params`, :func:`distribute_opt_state` and
+:func:`distribute_batch` apply the specs on a ``DeviceMesh``, the port's
+``jax.device_put(tree, shardings)``: each leaf becomes a DTensor with the
+placements of its spec (``sharding.placements``), its shards taken from
+rank 0's copy.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, Mapping, Tuple
 
-from repro_torch.sharding import Spec, _axsize, axis_sizes
+from repro_torch.sharding import Spec, _axsize, axis_sizes, placements
 
 
 def _names(rules, names) -> Spec:
@@ -179,3 +185,41 @@ def local_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
     dim divided by its axes' size, rounded up (GSPMD pads an uneven split)."""
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
     return tuple(math.ceil(n / _axsize(mesh, ax)) for n, ax in zip(shape, spec))
+
+
+def _distribute(x, spec: Spec, mesh):
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x.detach(), mesh, placements(spec, mesh))
+
+
+def distribute_params(model, rules, mesh):
+    """Every parameter of ``model`` (an ``nn.Module``) becomes, in place, an
+    ``nn.Parameter`` holding a DTensor placed by :func:`param_pspec` on the
+    ``DeviceMesh`` ``mesh``.  Returns ``model``."""
+    import torch
+
+    shardings = params_shardings(dict(model.named_parameters()), rules, mesh)
+    for name, spec in shardings.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        old = getattr(mod, leaf)
+        setattr(mod, leaf, torch.nn.Parameter(_distribute(old, spec, mesh),
+                                              requires_grad=old.requires_grad))
+    return model
+
+
+def distribute_opt_state(state, params_shardings_tree, mesh):
+    """The AdamW state on ``mesh``: m / v by their parameters' specs
+    (:func:`opt_state_shardings`), the step count replicated as it is."""
+    sh = opt_state_shardings(state, params_shardings_tree, mesh)
+    return type(state)(state.step,
+                       {k: _distribute(x, sh.m[k], mesh) for k, x in state.m.items()},
+                       {k: _distribute(x, sh.v[k], mesh) for k, x in state.v.items()})
+
+
+def distribute_batch(batch: Mapping[str, Any], rules, mesh) -> Dict[str, Any]:
+    """A batch of tensors on ``mesh``, each split on its batch dim by
+    :func:`batch_shardings`."""
+    sh = batch_shardings(batch, rules, mesh)
+    return {k: _distribute(x, sh[k], mesh) for k, x in batch.items()}

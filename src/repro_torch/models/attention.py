@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from repro_torch import sharding
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -73,10 +74,16 @@ def full_attention(p: Attention, x, cfg, *, q_pos, causal=True, window=None,
     self_attn = kv_x is None
     kv_in = x if self_attn else kv_x
     q, k, v = _proj_qkv(p, x, kv_in, h, hkv, hd)
+    if sharding.is_dtensor(q):
+        # the kernel's layout: q split by batch and heads (or, context-
+        # parallel, by its rows), k / v by batch and kv heads, their rows whole
+        q = sharding.logical(q, ("batch", "attn_seq", "heads", None))
+        k, v = (sharding.logical(t, ("batch", None, "kv_heads", None)) for t in (k, v))
     kv_pos = q_pos if self_attn else torch.arange(kv_in.shape[1], device=x.device,
                                                   dtype=torch.int32)
     if use_rope and self_attn:
-        cos, sin = layers.rope_cos_sin(q_pos, hd, cfg.rope_theta)
+        cos, sin = (sharding.replicate_like(t, q)
+                    for t in layers.rope_cos_sin(q_pos, hd, cfg.rope_theta))
         q = layers.apply_rope(q, cos[None], sin[None])
         k = layers.apply_rope(k, cos[None], sin[None])
     out = ops.flash_attention(q, k, v, causal=causal and self_attn, window=window,

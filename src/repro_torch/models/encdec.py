@@ -18,11 +18,11 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.models import attention, layers
-from repro_torch.models.lm import _pad_seq, masked_nll
+from repro_torch.models.lm import _pad_seq, embed_lookup, masked_nll, unembed_names, whole_vocab
 
 
 class EncLayer(nn.Module):
@@ -110,7 +110,8 @@ def encode(p: EncDec, cfg, frames, *, train=False):
     """frames: (B, F, d_enc) stub embeddings -> (B, F, d_enc)."""
     e = cfg.encoder
     x = frames.to(layers.dt(cfg.dtype))
-    x = x + layers.sinusoid_embed(x.shape[1], e.d_model, x.dtype, device=x.device)[None]
+    pe = layers.sinusoid_embed(x.shape[1], e.d_model, x.dtype, device=x.device)
+    x = sharding.logical(x + sharding.replicate_like(pe, x)[None], ("batch", None, "embed"))
     pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
     x, _ = _layers(_enc_layer, p.enc_blocks, x, cfg, pos, train=train, remat=cfg.remat)
     return layers.norm_apply(p.enc_norm, x, cfg.norm)
@@ -122,14 +123,17 @@ def encode(p: EncDec, cfg, frames, *, train=False):
 
 
 def _unembed(p: EncDec, x):
-    return x.float() @ p.embed.T.float()     # tied
+    logits = x.float() @ p.embed.T.float()     # tied
+    return sharding.logical(logits, unembed_names(logits))
 
 
 def _dec_layer(lp: DecLayer, x, cfg, q_pos, enc_out):
     h = layers.norm_apply(lp.norm1, x, cfg.norm)
+    # context-parallel fallback: whisper's 20 heads do not divide the model axis
+    h = sharding.logical(h, ("batch", "attn_seq", None))
     y, (k, v) = attention.full_attention(lp.self, h, cfg, q_pos=q_pos,
                                          use_rope=False, return_kv=True)
-    x = x + y
+    x = x + sharding.logical(y, ("batch", "attn_seq", None))
     h = layers.norm_apply(lp.norm_x, x, cfg.norm)
     y, (xk, xv) = attention.full_attention(lp.cross, h, cfg, q_pos=q_pos,
                                            kv_x=enc_out, causal=False,
@@ -143,8 +147,8 @@ def _dec_hidden(p: EncDec, cfg, tokens, enc_out, *, train=False):
     """Final-norm hidden states (B, S, d) and each layer's self and cross
     keys / values."""
     s = tokens.shape[1]
-    x = F.embedding(tokens, p.embed).to(layers.dt(cfg.dtype))
-    x = x + p.pos[:s][None].to(x.dtype)
+    x = embed_lookup(p.embed, tokens).to(layers.dt(cfg.dtype))
+    x = sharding.logical(x + p.pos[:s][None].to(x.dtype), ("batch", "seq", "embed"))
     q_pos = torch.arange(s, device=x.device, dtype=torch.int32)
     x, kv = _layers(_dec_layer, p.dec_blocks, x, cfg, q_pos, enc_out, train=train,
                     remat=cfg.remat)
@@ -163,7 +167,7 @@ def encdec_loss(p: EncDec, cfg, batch):
     Returns (loss, {loss, aux, zloss, tokens})."""
     enc_out = encode(p, cfg, batch["frames"], train=True)
     logits, _, _ = _dec_full(p, cfg, batch["tokens"], enc_out, train=True)
-    loss, _, denom = masked_nll(logits, batch["labels"])
+    loss, _, denom = masked_nll(whole_vocab(logits), batch["labels"])
     zero = torch.zeros((), dtype=torch.float32, device=logits.device)
     return loss, {"loss": loss, "aux": zero, "zloss": zero, "tokens": denom.float()}
 

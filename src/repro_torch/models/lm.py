@@ -10,6 +10,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.models import layers, transformer
 
 
@@ -44,11 +45,49 @@ def init_lm(gen: torch.Generator, cfg, *, max_seq: int, device) -> LM:
     return LM(cfg, device=device, gen=gen)
 
 
+def embed_lookup(table, tokens):
+    """Rows ``tokens`` of ``table``.  F.embedding, not table[tokens]: the same
+    rows, and on CUDA a backward that sums each row's gradient in a sorted
+    pass instead of scattering atomics into a bf16 table.  A DTensor table
+    goes through :func:`_embed_sharded`."""
+    if sharding.is_dtensor(table):
+        return _embed_sharded(table, tokens)
+    return F.embedding(tokens, table)
+
+
+def _embed_sharded(table, tokens):
+    """The lookup on a DTensor table through ``local_map``: its d_model
+    (fsdp) split is gathered and its vocab split kept; each rank looks up the
+    tokens its rows hold, zeros elsewhere, and the output is the ``Partial``
+    sum over the vocab ranks that the caller's constraint reduces.  The
+    table's gradient stays split by vocab, and is a partial sum over the
+    ranks that split the tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    tokens = sharding.replicate_like(tokens, table)
+    tp = [Shard(0) if p.is_shard(0) else Replicate() for p in table.placements]
+    ip = [Replicate() if t.is_shard(0) else p for p, t in zip(tokens.placements, tp)]
+    out = [Partial() if t.is_shard(0) else p for p, t in zip(ip, tp)]
+    grad = [t if t.is_shard(0) else (Partial() if p.is_shard(0) else Replicate())
+            for p, t in zip(ip, tp)]
+    first = sharding.shard_offset(mesh, tp, 0, table.shape[0])
+
+    def local(table, tokens):
+        ids = tokens - first
+        held = (ids >= 0) & (ids < table.shape[0])
+        rows = F.embedding(torch.where(held, ids, 0), table)
+        return torch.where(held[..., None], rows, 0.0)
+
+    fn = local_map(local, out_placements=out, in_placements=(tp, ip),
+                   in_grad_placements=(grad, ip), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(table, tokens)
+
+
 def _embed_tokens(p: LM, cfg, tokens):
-    # F.embedding, not p.embed[tokens]: the same rows, and on CUDA a backward
-    # that sums each row's gradient in a sorted pass instead of scattering
-    # atomics into a bf16 table
-    return F.embedding(tokens, p.embed).to(layers.dt(cfg.dtype))
+    return embed_lookup(p.embed, tokens).to(layers.dt(cfg.dtype))
 
 
 def _inputs_to_x(p: LM, cfg, batch):
@@ -58,12 +97,18 @@ def _inputs_to_x(p: LM, cfg, batch):
     if cfg.vision is not None and "image_embeds" in batch:
         img = batch["image_embeds"].to(x.dtype) @ p.proj
         x = torch.cat([img, x[:, : x.shape[1] - img.shape[1], :]], dim=1)
-    return x
+    return sharding.logical(x, ("batch", "seq", "embed"))
+
+
+def unembed_names(x):
+    """The logits' logical names: batch, any positions, then the vocab."""
+    return ("batch",) + (None,) * (x.dim() - 2) + ("vocab",)
 
 
 def _unembed(p: LM, cfg, x):
     w = p.embed.T if cfg.tie_embeddings else p.unembed
-    return x.float() @ w.float()
+    logits = x.float() @ w.float()
+    return sharding.logical(logits, unembed_names(logits))
 
 
 def _hidden(p: LM, cfg, batch, *, window=None, train=False):
@@ -83,6 +128,14 @@ def lm_forward(p: LM, cfg, batch, *, window=None, train=False):
     return _unembed(p, cfg, x), aux, caches
 
 
+def whole_vocab(logits):
+    """The loss's logits: the vocab split of ``("batch", None, "vocab")`` is
+    gathered (each rank then holds its batch rows' whole logits), so the
+    log-softmax, the label's gather and the z-loss's logsumexp run on local
+    rows; no partial reduction over vocab shards."""
+    return sharding.logical(logits, ("batch", None, None))
+
+
 def masked_nll(logits, labels):
     """Mean next-token NLL of fp32 ``logits`` (B, S, V) over ``labels >= 0``:
     (loss, mask, token count)."""
@@ -98,11 +151,13 @@ def lm_loss(p: LM, cfg, batch, *, window=None):
     carry none), plus the z-loss 1e-4 * mean(logsumexp^2) and the MoE aux
     loss.  Returns (total, {loss, aux, zloss, tokens})."""
     logits, aux, _ = lm_forward(p, cfg, batch, window=window, train=True)
+    logits = whole_vocab(logits)
     labels = batch["labels"]
     if cfg.vision is not None and "image_embeds" in batch:
         n_img = batch["image_embeds"].shape[1]
-        labels = torch.cat([torch.full((labels.shape[0], n_img), -1, dtype=labels.dtype,
-                                       device=labels.device),
+        none = torch.full((labels.shape[0], n_img), -1, dtype=labels.dtype,
+                          device=labels.device)
+        labels = torch.cat([sharding.replicate_like(none, labels),
                             labels[:, : labels.shape[1] - n_img]], dim=1)
     loss, mask, denom = masked_nll(logits, labels)
     # z-loss for logit drift (MaxText default)

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -51,7 +52,8 @@ class Mamba(nn.Module):
 
 def _softplus(x):
     """``jax.nn.softplus``: log(1 + e^x) with no linear threshold."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.logaddexp(x, sharding.replicate_like(zero, x))
 
 
 def _split_xproj(p: Mamba, xs, cfg):
@@ -63,18 +65,52 @@ def _split_xproj(p: Mamba, xs, cfg):
     return dt, b, c
 
 
+def _causal_conv(xs, conv_w, conv_b):
+    """silu of the causal depthwise conv over time of xs (B, T, d_in), summed
+    in the reference's order, and the conv state (the last d_conv - 1
+    inputs)."""
+    t, d_conv = xs.shape[1], conv_w.shape[0]
+    pad = d_conv - 1
+    xp = F.pad(xs, (0, 0, pad, 0))
+    conv = sum(xp[:, i: i + t, :] * conv_w[i][None, None] for i in range(d_conv))
+    return F.silu(conv + conv_b[None, None]), (xp[:, t:, :] if pad == 0 else xp[:, -pad:, :])
+
+
+def _causal_conv_sharded(xs, conv_w, conv_b):
+    """:func:`_causal_conv` on DTensors through ``local_map``: each rank
+    convolves its batch rows and channels (``ssm_inner``) over the whole time
+    axis (a split of time is gathered); the weights' gradients are partial
+    sums where the batch is split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    xp, wp, bp, wg = [], [], [], []
+    for p in xs.placements:
+        if p.is_shard(0):
+            xp.append(p), wp.append(Replicate()), bp.append(Replicate()), wg.append(Partial())
+        elif p.is_shard(2):
+            xp.append(p), wp.append(Shard(1)), bp.append(Shard(0)), wg.append(None)
+        else:
+            xp.append(Replicate()), wp.append(Replicate()), bp.append(Replicate())
+            wg.append(Replicate())
+    fn = local_map(_causal_conv, out_placements=(xp, xp), in_placements=(xp, wp, bp),
+                   in_grad_placements=(xp, [g or w for g, w in zip(wg, wp)],
+                                       [g or b for g, b in zip(wg, bp)]),
+                   device_mesh=xs.device_mesh, redistribute_inputs=True)
+    return fn(xs, conv_w, conv_b)
+
+
 def mamba_forward(p: Mamba, x, cfg, *, h0=None):
     """x: (B, T, d) -> (y (B, T, d), final state {"conv", "h"})."""
     s = cfg.ssm
-    b, t, d = x.shape
+    b, d = x.shape[0], x.shape[2]
     d_in = s.expand * d
     xs, z = torch.chunk(x @ p.in_proj, 2, dim=-1)             # (B, T, d_in) x2
-    # causal depthwise conv over time, summed in the reference's order
-    pad = s.d_conv - 1
-    xp = F.pad(xs, (0, 0, pad, 0))
-    conv = sum(xp[:, i: i + t, :] * p.conv_w[i][None, None] for i in range(s.d_conv))
-    xs = F.silu(conv + p.conv_b[None, None])
-    conv_state = xp[:, t:, :] if pad == 0 else xp[:, -pad:, :]
+    xs = sharding.logical(xs, ("batch", "seq", "ssm_inner"))
+    if sharding.is_dtensor(xs):
+        xs, conv_state = _causal_conv_sharded(xs, p.conv_w, p.conv_b)
+    else:
+        xs, conv_state = _causal_conv(xs, p.conv_w, p.conv_b)
 
     dt, bm, cm = _split_xproj(p, xs, cfg)
     A = -torch.exp(p.A_log)

@@ -14,9 +14,18 @@ axis, each rank of that axis's process group holds the whole (replicated)
 router and computes the same routing, dispatches only its own experts, runs
 its slice of Arctic's dense residual, and one all-reduce combines the
 partial outputs.  ``x`` is this rank's tokens, replicated over the group.
+
+On DTensor activations (the GSPMD path, ``sharding.py``) both paths run one
+``local_map``: each rank routes its token groups (split over ``moe_group``
+where the groups fall whole in a rank's rows, else every rank routes all of
+them), dispatches only the experts it holds (``wi`` / ``wg`` / ``wo`` split
+over ``expert``: the reference's ``buf`` / ``out`` constraints), and the
+partial outputs and aux losses are ``Partial`` sums, reduced where the
+block's constraint asks for them whole.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -229,9 +238,83 @@ def _model_group(mesh, axis: str, msize: int, x):
     return 0, None
 
 
+def _axes(ax) -> Tuple[str, ...]:
+    return (ax,) if isinstance(ax, str) else tuple(ax or ())
+
+
+def _moe_ffn_sharded(p: MoE, x, cfg, rules, mesh, *, ep: bool):
+    """The MoE on DTensor ``x`` (B, S, d) through ``local_map``.  The groups
+    are those of the path: of each data shard's tokens under ``ep`` (the
+    reference's ``shard_map``), else of all tokens (its GSPMD ``vmap``), split
+    over ``moe_group`` where each rank's rows hold whole groups."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    m = cfg.moe
+    b, s, d = x.shape
+    names = list(mesh.mesh_dim_names)
+    grp, exp = _axes(rules.get("moe_group")), _axes(rules.get("expert"))
+    g_ranks = math.prod(mesh.size(names.index(a)) for a in grp)
+    e_ranks = math.prod(mesh.size(names.index(a)) for a in exp)
+    t_local = b * s // g_ranks
+    gs = min(GROUP, t_local if ep else b * s)
+    split = bool(grp) and (ep or t_local % gs == 0)
+    if not split:
+        g_ranks = 1
+    e_local = m.num_experts // e_ranks
+    e_rank = 0
+    for a in exp:
+        e_rank = e_rank * mesh.size(names.index(a)) + mesh.get_local_rank(a)
+
+    rep, part = Replicate(), Partial()
+    xp, xg, wp, wg, yp = [], [], [], [], []    # x, its grad; experts, theirs; y / aux
+    for a in names:
+        if split and a in grp:
+            xp.append(Shard(0)), xg.append(Shard(0)), wp.append(rep), wg.append(part)
+            yp.append(part)
+        elif a in exp:
+            xp.append(rep), xg.append(part), wp.append(Shard(0)), wg.append(Shard(0))
+            yp.append(part)
+        else:
+            xp.append(rep), xg.append(rep), wp.append(rep), wg.append(rep), yp.append(rep)
+    # the router is whole on every rank, and its gradient partial wherever
+    # the tokens or the experts are split
+    rg = [part if isinstance(g, Partial) or isinstance(w, Shard) else rep
+          for g, w in zip(wg, wp)]
+    yp_tok = [Shard(0) if (split and a in grp) else y for a, y in zip(names, yp)]
+    leaves = [p.router, p.wi, p.wo] + ([p.wg] if hasattr(p, "wg") else [])
+
+    def local(x, router, wi, wo, wg=None):
+        parts = {"router": router, "wi": wi, "wo": wo}
+        if wg is not None:
+            parts["wg"] = wg
+        flat = x.reshape(-1, d)
+        t = flat.shape[0]
+        g = t // gs
+        groups = flat.reshape(g, gs, d) if g * gs == t else flat.reshape(1, t, d)
+        ys, auxs = zip(*(_dispatch_group_local(xx, parts, cfg, rank=e_rank, e_local=e_local)
+                         for xx in groups))
+        # every expert rank's aux is the whole one, every group rank's the
+        # mean of its groups: the Partial sums over both take their shares
+        aux = torch.stack(auxs).mean() / (g_ranks * e_ranks)
+        return torch.stack(ys).reshape(x.shape), aux
+
+    fn = local_map(local, out_placements=(yp_tok, yp), device_mesh=mesh,
+                   redistribute_inputs=True,
+                   in_placements=(xp, [rep] * len(names)) + (wp,) * (len(leaves) - 1),
+                   in_grad_placements=(xg, rg) + (wg,) * (len(leaves) - 1))
+    y, aux = fn(x, *leaves)
+    if hasattr(p, "dense"):
+        y = y + layers.mlp_apply(p.dense, x, cfg.act)
+    return y, m.router_aux_weight * aux
+
+
 def _moe_ffn_ep(p: MoE, x, cfg, rules, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     """Explicit expert-parallel MoE: the sort-based dispatch stays local, and
-    the only collective is the combine's all-reduce of the token outputs."""
+    the only collective is the combine's all-reduce of the token outputs.
+    DTensor ``x`` takes :func:`_moe_ffn_sharded`."""
+    if sharding.is_dtensor(x):
+        return _moe_ffn_sharded(p, x, cfg, rules, mesh, ep=True)
     model_ax = rules["expert"]
     msize = sharding._axsize(mesh, model_ax)
     m = cfg.moe
@@ -288,11 +371,14 @@ def moe_ffn(p: MoE, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
         rules, mesh = ctx
         if rules.get("expert") and x.shape[0] * x.shape[1] >= 2048:
             return _moe_ffn_ep(p, x, cfg, rules, mesh)
+        if sharding.is_dtensor(x):
+            return _moe_ffn_sharded(p, x, cfg, rules, mesh, ep=False)
     b, s, d = x.shape
     t = b * s
     gs = min(GROUP, t)
     g = t // gs
     xg = x.reshape(g, gs, d) if g * gs == t else x.reshape(1, t, d)
+    xg = sharding.logical(xg, ("moe_group", None, None))
     ys, auxs = zip(*(_dispatch_group(xx, p, cfg) for xx in xg))
     out = torch.stack(ys).reshape(b, s, d)
     if hasattr(p, "dense"):

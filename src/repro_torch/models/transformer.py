@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.models import attention, layers, mamba, moe, xlstm
 
 
@@ -97,6 +98,7 @@ def _apply_ffn(p: Block, x, cfg):
         return x, 0.0
     h = layers.norm_apply(p.norm2, x, cfg.norm)
     if hasattr(p, "ffn"):
+        h = sharding.logical(h, ("batch", "seq", "embed"))
         return x + layers.mlp_apply(p.ffn, h, cfg.act), 0.0
     y, aux = moe.moe_ffn(p.moe, h, cfg)
     return x + y, aux
@@ -106,8 +108,12 @@ def _block_full(p: Block, x, cfg, q_pos, window):
     """Full-sequence block.  Returns (x, aux, cache_material)."""
     h = layers.norm_apply(p.norm1, x, cfg.norm)
     if hasattr(p, "attn"):
+        # context-parallel fallback: tokens split over the model axis through
+        # the attention block when heads do not divide it
+        h = sharding.logical(h, ("batch", "attn_seq", None))
         y, (k, v) = attention.full_attention(p.attn, h, cfg, q_pos=q_pos,
                                              window=window, return_kv=True)
+        y = sharding.logical(y, ("batch", "attn_seq", None))
         cache = {"k": k, "v": v}
     elif hasattr(p, "ssm"):
         y, cache = mamba.mamba_forward(p.ssm, h, cfg)
@@ -116,7 +122,7 @@ def _block_full(p: Block, x, cfg, q_pos, window):
     else:
         y, cache = xlstm.slstm_forward(p.xl, h, cfg)
     x, aux = _apply_ffn(p, x + y, cfg)
-    return x, aux, cache
+    return sharding.logical(x, ("batch", "seq", "embed")), aux, cache
 
 
 def _block_decode(p: Block, x, cfg, pos, window, cache):
@@ -156,7 +162,7 @@ def stack_full(blocks: nn.ModuleList, x, cfg, *, q_pos, window=None, train=False
     checkpointing (the reference's ``jax.checkpoint`` of its period): its
     activations are recomputed in the backward instead of kept.  The numbers
     are the same either way."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = sharding.replicate_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
     per = period_len(cfg)
     caches = []
     for i in range(0, len(blocks), per):

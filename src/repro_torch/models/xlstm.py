@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.models import layers
 
 _M0 = -1e30          # initial stabiliser: the first step's forget term is 0
@@ -80,7 +81,7 @@ def _mlstm_gates(p: MLSTM, xs):
     """xs: (..., d_in) -> log input gate, log forget gate (..., H) in fp32."""
     xf = xs.float()
     log_i = xf @ p.w_i + p.b_i                               # pre-activation ĩ
-    log_f = F.logsigmoid(xf @ p.w_f + p.b_f)                 # log σ(f̃)
+    log_f = sharding.pointwise(F.logsigmoid, xf @ p.w_f + p.b_f)  # log σ(f̃)
     return log_i, log_f
 
 
@@ -122,7 +123,8 @@ def mlstm_forward(p: MLSTM, x, cfg, *, state=None):
     q, k, v = _mlstm_qkv(p, xs, h, dh)
     log_i, log_f = _mlstm_gates(p, xs)
     if state is None:
-        state = init_mlstm_state(cfg, b, device=x.device)
+        state = {k: sharding.replicate_like(t, x)
+                 for k, t in init_mlstm_state(cfg, b, device=x.device).items()}
     carry = (state["C"], state["n"], state["m"])
     q, k, v = q.float(), k.float(), v.float()
     hs = []
@@ -199,7 +201,7 @@ def _slstm_step(p: SLSTM, carry, x_t, h_heads):
     i_pre, f_pre = g(p.gi), g(p.gf)
     z_t = torch.tanh(g(p.gz))
     o_t = torch.sigmoid(g(p.go))
-    log_f = F.logsigmoid(f_pre)
+    log_f = sharding.pointwise(F.logsigmoid, f_pre)
     m_new = torch.maximum(log_f + m, i_pre)
     i_t = torch.exp(i_pre - m_new)
     f_t = torch.exp(log_f + m - m_new)
@@ -223,7 +225,8 @@ def slstm_forward(p: SLSTM, x, cfg, *, state=None):
     b, t, _ = x.shape
     xs, z = torch.chunk(x @ p.up, 2, dim=-1)
     if state is None:
-        state = init_slstm_state(cfg, b, device=x.device)
+        state = {k: sharding.replicate_like(t, x)
+                 for k, t in init_slstm_state(cfg, b, device=x.device).items()}
     carry = (state["c"], state["n"], state["m"])
     h_t = state["h"]
     xf = xs.float()

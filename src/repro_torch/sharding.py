@@ -1,6 +1,6 @@
 """Logical-axis sharding rules (port of ``repro.sharding``): divisibility-aware
-rules per (architecture, input shape, mesh), and the constraints models would
-place on their activations.
+rules per (architecture, input shape, mesh), and the constraints models place
+on their activations.
 
 ``make_rules`` is pure arithmetic on the mesh's axis sizes, so the dry run
 and the partition specs (``launch/specs.py``) read it for the production
@@ -10,14 +10,18 @@ meshes with no devices at all.  A mesh is anything with named axis sizes: a
 a mapping from axis name to size.
 
 :func:`logical` is where the reference places a GSPMD
-``with_sharding_constraint``.  Here it returns its input unchanged outside a
-rules context and wherever every mesh axis it maps to has size 1 (one H100,
-or a ``(1, 1)`` mesh).  A constraint that would really split a tensor over
-several ranks has no counterpart yet: GSPMD execution over a multi-card mesh
-(``logical`` constraints becoming DTensor placements) is ROADMAP item A8, and
-until it lands such a call raises rather than run unsharded silently.  The
-one path that does run across ranks is the expert-parallel MoE
-(``models/moe.py``), which reads the rules and the mesh through
+``with_sharding_constraint``.  Under a rules context on a ``DeviceMesh`` it
+redistributes a DTensor (``torch.distributed.tensor``) to the placements of
+its spec (:func:`placements`): a split dim becomes ``Shard``, a ``None``
+entry ``Replicate``, and a ``Partial`` sum is reduced there, where GSPMD
+would place its collective.  The models are then DTensor programs: the
+parameters and the batch are placed by ``launch/specs.py``, the ops between
+two constraints propagate their shardings, and the hand kernels run on each
+rank's local shard (``kernels/ops.py``).  Outside a rules context, under a
+``MeshShape`` (the dry run) and on meta tensors :func:`logical` returns its
+input; a plain tensor that a constraint would split over several ranks is
+refused, so nothing runs unsharded in silence.  The expert-parallel MoE
+(``models/moe.py``) reads the rules and the mesh through
 :func:`current_rules_and_mesh` and places its own collectives.
 """
 from __future__ import annotations
@@ -70,22 +74,121 @@ def spec_for(names: Sequence[Optional[str]]) -> Spec:
     return tuple(rules.get(n) if n else None for n in names)
 
 
-def logical(x, names: Sequence[Optional[str]]):
-    """Constrain tensor ``x`` whose dims carry logical names (None = any).
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (``torch.distributed.tensor.DTensor``)."""
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:                       # a build without distributed
+        return False
+    return isinstance(x, DTensor)
 
-    Returns ``x`` where the constraint splits nothing (no rules context, or
-    only size-1 mesh axes); raises where it would split ``x`` over ranks."""
+
+def _is_device_mesh(mesh) -> bool:
+    return hasattr(mesh, "mesh_dim_names") and hasattr(mesh, "get_group")
+
+
+def placements(spec: Spec, mesh) -> list:
+    """The DTensor placements of ``spec`` on ``mesh``: one a mesh dim,
+    ``Shard(d)`` where tensor dim ``d`` is split over that mesh axis, else
+    ``Replicate()``; an axis of size 1 splits nothing and replicates (DTensor
+    would refuse to fold a dim "split" over one rank into another).  A tuple
+    entry such as ``("pod", "data")`` splits one tensor dim over both mesh
+    axes, the first named outermost, as GSPMD does; DTensor splits in mesh
+    order, so the tuple must follow it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    out = [Replicate()] * len(names)
+    used = set()
+    for dim, ax in enumerate(spec):
+        axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
+        where = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec} names axis {a!r}, not in mesh {names}")
+            if a in used:
+                raise ValueError(f"spec {spec} splits two dims over mesh axis {a!r}")
+            used.add(a)
+            i = names.index(a)
+            where.append(i)
+            if sizes[a] > 1:
+                out[i] = Shard(dim)
+        if where != sorted(where):
+            raise ValueError(f"spec {spec}: the axes {axes} of dim {dim} are not in "
+                             f"the mesh's order {names}")
+    return out
+
+
+def logical(x, names: Sequence[Optional[str]]):
+    """Constrain tensor ``x`` whose dims carry logical names (None = any):
+    the reference's ``with_sharding_constraint``.
+
+    A DTensor under a rules context on a ``DeviceMesh`` is redistributed to
+    the spec's placements (any ``Partial`` is reduced here).  ``x`` itself
+    comes back outside a rules context, on a meta tensor, and where the
+    constraint splits nothing; a plain tensor the constraint would split over
+    several ranks raises."""
     ctx = _current()
-    if ctx is None:
+    if ctx is None or x.device.type == "meta":
         return x
     _, mesh = ctx
     spec = spec_for(names)
+    if _is_device_mesh(mesh) and is_dtensor(x):
+        want = placements(spec, mesh)
+        if list(x.placements) == want:
+            return x
+        return x.redistribute(mesh, want)
     if all(_axsize(mesh, ax) == 1 for ax in spec):
         return x
+    if _is_device_mesh(mesh):
+        raise ValueError(
+            f"a sharding constraint {spec} over mesh {dict(axis_sizes(mesh))} splits a "
+            f"plain tensor of shape {tuple(x.shape)}: place the parameters and the batch "
+            f"as DTensors (launch.specs.distribute_params / distribute_batch) first")
     raise NotImplementedError(
         f"a sharding constraint {spec} over mesh {dict(axis_sizes(mesh))} splits a "
-        f"tensor across ranks; GSPMD execution over a multi-card mesh is ROADMAP "
-        f"item A8 (logical constraints as DTensor placements)")
+        f"tensor across ranks, and a {type(mesh).__name__} has no devices to hold the "
+        f"shards: run it over a DeviceMesh (launch.mesh), the GSPMD path of ROADMAP "
+        f"item A8")
+
+
+def shard_offset(mesh, plc, dim: int, size: int) -> int:
+    """This rank's first index along tensor dim ``dim`` (of ``size``) under
+    DTensor placements ``plc``, which split it evenly, the first mesh dim
+    outermost (DTensor's order)."""
+    off, n = 0, size
+    for i, p in enumerate(plc):
+        if p.is_shard(dim):
+            n //= mesh.size(i)
+            off += mesh.get_local_rank(i) * n
+    return off
+
+
+def pointwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor ``x`` it runs on the
+    local shard (``local_map``), for the ops DTensor has no sharding
+    strategy for (``log_sigmoid``'s backward), its split kept."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    plc = [Replicate() if p.is_partial() else p for p in x.placements]
+    return local_map(fn, out_placements=plc, in_placements=(plc,),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x)
+
+
+def replicate_like(t, ref):
+    """``t``, a tensor every rank computes alike (positions, masks, rope
+    tables, zeros), as a replicated DTensor on ``ref``'s mesh where ``ref``
+    is a DTensor, so that ops mixing the two see one kind; else ``t``."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 # --------------------------------------------------------------------------- #

@@ -6,6 +6,12 @@ and fp32 update math, then cast back), as the reference keeps it.  A tree
 is a nested ``dict`` of tensors; leaves are visited in sorted-key order,
 the order JAX flattens a dict in, so the global norm sums in the
 reference's order.
+
+DTensor trees (the GSPMD path) keep their placements: the state mirrors the
+parameters, the global norm sums each element once (a shard's sum is a
+``Partial`` term, a replicated leaf's is counted once, not once a rank), and
+the in-place update runs on each rank's local shards, exact because AdamW is
+element-wise and m / v are split as p is.
 """
 from __future__ import annotations
 
@@ -14,6 +20,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, List, NamedTuple
 
 import torch
+
+from repro_torch.sharding import is_dtensor
 
 
 @dataclass(frozen=True)
@@ -59,9 +67,19 @@ def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _zeros_f32(p):
+    if is_dtensor(p):                  # the parameter's placements, fp32
+        return torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _local(x):
+    """A DTensor's local shard (a view of its storage), or ``x``."""
+    return x.to_local() if is_dtensor(x) else x
+
+
 def init_opt_state(params) -> OptState:
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    zeros = tree_map(_zeros_f32, params)
     step = torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
     return OptState(step, zeros, tree_map(torch.zeros_like, zeros))
@@ -72,7 +90,8 @@ def global_norm(grads) -> torch.Tensor:
     sorted-key order (the reference's order)."""
     total = 0
     for g in tree_leaves(grads):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        total = total + (sq.full_tensor() if is_dtensor(sq) else sq)
     return torch.sqrt(total)
 
 
@@ -144,8 +163,8 @@ def apply_updates_(cfg: OptimizerConfig, params, grads, state: OptState, decay=N
         step, gnorm, decay, terms = _terms(cfg, params, grads, state, decay)
         for p, g, m, v, dec in zip(*(tree_leaves(t) for t in (params, grads, state.m,
                                                                 state.v, decay))):
-            pf, mf, vf = (x.view(-1) for x in (p, m, v))    # raises rather than copy
-            gf = g.reshape(-1)
+            pf, mf, vf = (_local(x).view(-1) for x in (p, m, v))  # raises rather than copy
+            gf = _local(g).reshape(-1)
             for i in range(0, pf.numel(), SLICE):
                 part = slice(i, i + SLICE)
                 newp, newm, newv = _adamw(cfg, pf[part], gf[part], mf[part], vf[part], dec,

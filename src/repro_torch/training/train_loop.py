@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.models.convert import LAYER_STACKED, STACKED
 from repro_torch.models.registry import ModelBundle
 from repro_torch.training.optimizer import (OptimizerConfig, OptState,
@@ -52,7 +53,8 @@ def value_and_grad(bundle: ModelBundle, params: torch.nn.Module, batch):
     parameter leaf: ``(loss, metrics, {name: grad})``.  The leaves require
     grad for this call only; a leaf the loss does not reach (a vision
     projector on a batch without image embeds) has the zero gradient JAX
-    gives it."""
+    gives it.  DTensor parameters (the GSPMD path) get DTensor gradients in
+    their own placements; the loss and the metrics come back whole."""
     tree = param_tree(params)
     leaves = list(tree.values())
     for p in leaves:
@@ -63,10 +65,25 @@ def value_and_grad(bundle: ModelBundle, params: torch.nn.Module, batch):
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    grads = {name: torch.zeros_like(p) if g is None else g
+    grads = {name: torch.zeros_like(p) if g is None else _placed_like(g, p)
              for (name, p), g in zip(tree.items(), grads)}
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, grads
+    metrics = {k: _whole(v.detach()) for k, v in metrics.items()}
+    return _whole(loss.detach()), metrics, grads
+
+
+def _placed_like(g, p):
+    """A DTensor gradient in its parameter's placements: a ``Partial`` sum
+    reduced (reduce-scattered where the parameter is split, as FSDP's
+    gradients are), a split gathered or cut to the parameter's."""
+    if sharding.is_dtensor(g) and list(g.placements) != list(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _whole(x):
+    """A DTensor scalar (the loss, a metric) as the plain tensor every rank
+    holds alike."""
+    return x.full_tensor() if sharding.is_dtensor(x) else x
 
 
 def make_train_step(bundle: ModelBundle, opt_cfg: OptimizerConfig):
