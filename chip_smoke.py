@@ -177,7 +177,22 @@ Phases, each fatal on failure:
                launches equal to phase 21's a step, its ms beside phase 21's
                (DTensor's host cost, no gate); d. SMOKE jamba (AM) fp32, the
                loss and gradients on the card through DTensor against the
-               CPU, the scan and its backward counted.
+               CPU, the scan and its backward counted;
+ 31. gspmd-decode — decode under the decode rules: a. on phase 30's
+               one-rank NCCL world, full-width granite-3-2b in bf16, a
+               496-token prefill at max_seq 512, the caches placed by
+               launch/specs.py's distribute_caches, then 16 decode steps
+               through DTensor: logits and every cache leaf bit-equal to the
+               plain decode_step, decode launches equal (40 a step), the ms a
+               token beside the plain ms a token; b. the split softmax in one
+               process at granite's and internvl2's (G 7) decode shapes, fp32
+               and bf16: the decode kernel's statistics (stats=True) on 2 and
+               4 row slices of a 512-row cache (some wholly masked), merged by
+               ops.combine_partials, against the whole-cache kernel and the
+               plain version (3e-5 / 5e-2), each slice's (out, m, l) against
+               the plain version's (1e-5; m = -1e30, l = the rows exactly on a
+               masked slice); the statistics instantiation timed beside the
+               serving one (graph replay and launch by launch).
 The kernel phase also holds the flash kernel to its plain version at the
 forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it, and
 both attention kernels at whisper's (encoder 1500 x 1500 non-causal, cross
@@ -190,6 +205,7 @@ Then one JSON line of kernel numbers and, last, the device JSON line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2610,6 +2626,21 @@ EP_SHAPE = (1, 2048)
 DRYRUN_TOL = 0.01
 
 
+@contextlib.contextmanager
+def _nccl_world():
+    """A one-rank NCCL world (a FileStore in a temporary directory), torn
+    down on exit: the card's stand-in for a multi-card mesh."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
 def ep_phase(torch, dev):
     """The two-layer Jamba through the expert-parallel MoE path on a one-rank
     NCCL world (a FileStore in a temporary directory): its fp32 loss and
@@ -2617,7 +2648,6 @@ def ep_phase(torch, dev):
     make_host_mesh())`` against the same call with no rules (phase 20's
     tolerances), then one bf16 step through the EP path, with the all-reduce
     bytes it counted."""
-    import torch.distributed as dist
     from repro_torch import sharding
     from repro_torch.config import InputShape
     from repro_torch.data import pipeline
@@ -2631,68 +2661,63 @@ def ep_phase(torch, dev):
     b, s = EP_SHAPE
     shape = InputShape("ep", s, b, "train")
     label = f"{HYBRID} x{HYBRID_TRAIN_LAYERS}"
-    with tempfile.TemporaryDirectory() as store:
-        dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
-                                world_size=1)
-        try:
-            mesh = make_host_mesh()
-            cfg = dataclasses.replace(hybrid_train_cfg(), dtype="float32", param_dtype="float32")
-            rules = sharding.make_rules(cfg, shape, mesh)
-            bundle = registry.build(cfg, max_seq=s, device=dev)
-            model = bundle.init(torch.Generator(device=dev).manual_seed(0))
-            batch = to_device(next(pipeline.batches(cfg, shape)), dev)
-            lp, _, gp = value_and_grad(bundle, model, batch)
-            moe.allreduce_bytes.update(combine=0, backward=0)
-            with sharding.use_rules(rules, mesh):
-                le, _, ge = value_and_grad(bundle, model, batch)
-            torch.cuda.synchronize()
-            counted = dict(moe.allreduce_bytes)
+    with _nccl_world():
+        mesh = make_host_mesh()
+        cfg = dataclasses.replace(hybrid_train_cfg(), dtype="float32", param_dtype="float32")
+        rules = sharding.make_rules(cfg, shape, mesh)
+        bundle = registry.build(cfg, max_seq=s, device=dev)
+        model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        batch = to_device(next(pipeline.batches(cfg, shape)), dev)
+        lp, _, gp = value_and_grad(bundle, model, batch)
+        moe.allreduce_bytes.update(combine=0, backward=0)
+        with sharding.use_rules(rules, mesh):
+            le, _, ge = value_and_grad(bundle, model, batch)
+        torch.cuda.synchronize()
+        counted = dict(moe.allreduce_bytes)
 
-            def norm(g):
-                return torch.sqrt(sum(x.double().square().sum() for x in g.values())).item()
+        def norm(g):
+            return torch.sqrt(sum(x.double().square().sum() for x in g.values())).item()
 
-            ne, np_ = norm(ge), norm(gp)
-            worst, worst_name = max((((ge[k] - gp[k]).abs().max().item()
-                                      / max(gp[k].abs().max().item(), 1e-30), k) for k in gp))
-            le, lp = le.item(), lp.item()
-            print(f"ep {label} fp32 B {b} x S {s} on a (1, 1) NCCL mesh (rules expert="
-                  f"{rules['expert']!r}): loss EP {le:.7f} single {lp:.7f} (rel "
-                  f"{abs(le - lp) / abs(lp):.2e}, tol {GRAD_TOL['loss']}); grad norm EP "
-                  f"{ne:.6f} single {np_:.6f} (rel {abs(ne - np_) / np_:.2e}, tol "
-                  f"{GRAD_TOL['norm']}); worst leaf {worst:.2e} at {worst_name} (tol "
-                  f"{GRAD_TOL['leaf']}); all-reduce bytes {counted}")
-            if not counted["combine"] or not counted["backward"]:
-                _fail(f"ep {label}: the EP path placed no all-reduce ({counted})")
-            if not (abs(le - lp) <= GRAD_TOL["loss"] * abs(lp)
-                    and abs(ne - np_) <= GRAD_TOL["norm"] * np_
-                    and worst <= GRAD_TOL["leaf"] and math.isfinite(ne)):
-                _fail(f"ep {label}: the EP path's loss or gradients disagree with the "
-                      f"single-device path's")
-            del model, gp, ge, batch
-            _free(torch)
+        ne, np_ = norm(ge), norm(gp)
+        worst, worst_name = max((((ge[k] - gp[k]).abs().max().item()
+                                  / max(gp[k].abs().max().item(), 1e-30), k) for k in gp))
+        le, lp = le.item(), lp.item()
+        print(f"ep {label} fp32 B {b} x S {s} on a (1, 1) NCCL mesh (rules expert="
+              f"{rules['expert']!r}): loss EP {le:.7f} single {lp:.7f} (rel "
+              f"{abs(le - lp) / abs(lp):.2e}, tol {GRAD_TOL['loss']}); grad norm EP "
+              f"{ne:.6f} single {np_:.6f} (rel {abs(ne - np_) / np_:.2e}, tol "
+              f"{GRAD_TOL['norm']}); worst leaf {worst:.2e} at {worst_name} (tol "
+              f"{GRAD_TOL['leaf']}); all-reduce bytes {counted}")
+        if not counted["combine"] or not counted["backward"]:
+            _fail(f"ep {label}: the EP path placed no all-reduce ({counted})")
+        if not (abs(le - lp) <= GRAD_TOL["loss"] * abs(lp)
+                and abs(ne - np_) <= GRAD_TOL["norm"] * np_
+                and worst <= GRAD_TOL["leaf"] and math.isfinite(ne)):
+            _fail(f"ep {label}: the EP path's loss or gradients disagree with the "
+                  f"single-device path's")
+        del model, gp, ge, batch
+        _free(torch)
 
-            cfg = hybrid_train_cfg()
-            bundle = registry.build(cfg, max_seq=s, device=dev)
-            model = bundle.init(torch.Generator(device=dev).manual_seed(0))
-            opt_state = init_opt_state(param_tree(model))
-            step = make_train_step(bundle, OptimizerConfig(lr=3e-3, warmup_steps=1,
-                                                           total_steps=1))
-            batch = to_device(next(pipeline.batches(cfg, shape)), dev)
-            moe.allreduce_bytes.update(combine=0, backward=0)
-            t1 = time.perf_counter()
-            with sharding.use_rules(sharding.make_rules(cfg, shape, mesh), mesh):
-                _, _, metrics = step(model, opt_state, batch)
-            loss = metrics["total_loss"].item()
-            step_s = time.perf_counter() - t1
-            print(f"ep {label} bf16: one step through the EP path at B {b} x S {s}: loss "
-                  f"{loss:.4f}, {step_s * 1e3:.1f} ms (the first: allocator and NCCL "
-                  f"warm-up included); all-reduce bytes counted {dict(moe.allreduce_bytes)}")
-            if not math.isfinite(loss) or not moe.allreduce_bytes["combine"]:
-                _fail(f"ep {label} bf16 step: loss {loss} or no combine all-reduce")
-            del model, opt_state, batch
-            _free(torch)
-        finally:
-            dist.destroy_process_group()
+        cfg = hybrid_train_cfg()
+        bundle = registry.build(cfg, max_seq=s, device=dev)
+        model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        opt_state = init_opt_state(param_tree(model))
+        step = make_train_step(bundle, OptimizerConfig(lr=3e-3, warmup_steps=1,
+                                                       total_steps=1))
+        batch = to_device(next(pipeline.batches(cfg, shape)), dev)
+        moe.allreduce_bytes.update(combine=0, backward=0)
+        t1 = time.perf_counter()
+        with sharding.use_rules(sharding.make_rules(cfg, shape, mesh), mesh):
+            _, _, metrics = step(model, opt_state, batch)
+        loss = metrics["total_loss"].item()
+        step_s = time.perf_counter() - t1
+        print(f"ep {label} bf16: one step through the EP path at B {b} x S {s}: loss "
+              f"{loss:.4f}, {step_s * 1e3:.1f} ms (the first: allocator and NCCL "
+              f"warm-up included); all-reduce bytes counted {dict(moe.allreduce_bytes)}")
+        if not math.isfinite(loss) or not moe.allreduce_bytes["combine"]:
+            _fail(f"ep {label} bf16 step: loss {loss} or no combine all-reduce")
+        del model, opt_state, batch
+        _free(torch)
     print(f"phase ep: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2833,7 +2858,6 @@ def gspmd_phase(torch, dev, granite_step_s):
     d: SMOKE jamba (AM) in fp32, loss and gradients on the card through the
     DTensor path against the CPU's plain path, the scan and its backward
     counted through ``local_map``.  Returns the numbers printed."""
-    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch import sharding
     from repro_torch.config import InputShape, get_config
@@ -2847,158 +2871,345 @@ def gspmd_phase(torch, dev, granite_step_s):
 
     t0 = time.perf_counter()
     out = {}
-    with tempfile.TemporaryDirectory() as store:
-        dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
-                                world_size=1)
-        try:
-            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    with _nccl_world():
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
 
-            # c: bf16 prefill
-            cfg = get_config(ARCH)
-            shape = InputShape("prefill", GSPMD_PROMPT, 1, "prefill")
-            bundle = registry.build(cfg, shape, max_seq=GSPMD_PROMPT, device=dev)
-            model = bundle.init(torch.Generator(device=dev).manual_seed(0))
-            gen = torch.Generator(device=dev).manual_seed(3)
-            batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, GSPMD_PROMPT), device=dev,
-                                             generator=gen, dtype=torch.int32)}
-            with torch.no_grad():
-                want, want_caches, _ = bundle.prefill(model, batch)
-                plain_ms = _second_call_ms(torch, lambda: bundle.prefill(model, batch))
-            rules = sharding.make_rules(cfg, shape, mesh)
-            placed = _gspmd_place(model, batch, rules, mesh)
-            kf.launches = 0
-            with sharding.use_rules(rules, mesh), torch.no_grad():
-                got, got_caches, pos = bundle.prefill(model, placed)
-                got = got.full_tensor()
-                flash = kf.launches
-                dtensor_ms = _second_call_ms(torch, lambda: bundle.prefill(model, placed))
-            diff = (got.float() - want.float()).abs().max().item()
-            cache_diff = max((g[k].full_tensor().float() - w[k].float()).abs().max().item()
-                             for g, w in zip(got_caches, want_caches) for k in w)
-            scale = want.float().abs().max().item()
-            out["prefill"] = {"max_abs_diff": diff, "cache_max_abs_diff": cache_diff,
-                              "ms": dtensor_ms, "plain_ms": plain_ms, "flash": flash}
-            print(f"gspmd c {ARCH} bf16 prefill of {GSPMD_PROMPT} tokens on a (1, 1) NCCL mesh "
-                  f"through DTensor: logits max|diff| {diff:.3e} against the plain prefill "
-                  f"(max|logit| {scale:.3f}, tol {GSPMD_PREFILL_TOL} of it), caches max|diff| "
-                  f"{cache_diff:.3e}; {dtensor_ms:.1f} ms a prefill through DTensor, "
-                  f"{plain_ms:.1f} plain (each the second of two calls); flash launches "
-                  f"{flash} (expected {cfg.num_layers}); next position {pos}")
-            if not (diff <= GSPMD_PREFILL_TOL * scale and cache_diff <= GSPMD_PREFILL_TOL
-                    * max(w[k].float().abs().max().item() for w in want_caches for k in w)
-                    and math.isfinite(diff)):
-                _fail("gspmd c: the DTensor prefill disagrees with the plain prefill")
-            if flash != cfg.num_layers:
-                _fail(f"gspmd c: {flash} flash launches, expected {cfg.num_layers}")
-            del model, placed, want, got, want_caches, got_caches
-            _free(torch)
+        # c: bf16 prefill
+        cfg = get_config(ARCH)
+        shape = InputShape("prefill", GSPMD_PROMPT, 1, "prefill")
+        bundle = registry.build(cfg, shape, max_seq=GSPMD_PROMPT, device=dev)
+        model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        gen = torch.Generator(device=dev).manual_seed(3)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, GSPMD_PROMPT), device=dev,
+                                         generator=gen, dtype=torch.int32)}
+        with torch.no_grad():
+            want, want_caches, _ = bundle.prefill(model, batch)
+            plain_ms = _second_call_ms(torch, lambda: bundle.prefill(model, batch))
+        rules = sharding.make_rules(cfg, shape, mesh)
+        placed = _gspmd_place(model, batch, rules, mesh)
+        kf.launches = 0
+        with sharding.use_rules(rules, mesh), torch.no_grad():
+            got, got_caches, pos = bundle.prefill(model, placed)
+            got = got.full_tensor()
+            flash = kf.launches
+            dtensor_ms = _second_call_ms(torch, lambda: bundle.prefill(model, placed))
+        diff = (got.float() - want.float()).abs().max().item()
+        cache_diff = max((g[k].full_tensor().float() - w[k].float()).abs().max().item()
+                         for g, w in zip(got_caches, want_caches) for k in w)
+        scale = want.float().abs().max().item()
+        out["prefill"] = {"max_abs_diff": diff, "cache_max_abs_diff": cache_diff,
+                          "ms": dtensor_ms, "plain_ms": plain_ms, "flash": flash}
+        print(f"gspmd c {ARCH} bf16 prefill of {GSPMD_PROMPT} tokens on a (1, 1) NCCL mesh "
+              f"through DTensor: logits max|diff| {diff:.3e} against the plain prefill "
+              f"(max|logit| {scale:.3f}, tol {GSPMD_PREFILL_TOL} of it), caches max|diff| "
+              f"{cache_diff:.3e}; {dtensor_ms:.1f} ms a prefill through DTensor, "
+              f"{plain_ms:.1f} plain (each the second of two calls); flash launches "
+              f"{flash} (expected {cfg.num_layers}); next position {pos}")
+        if not (diff <= GSPMD_PREFILL_TOL * scale and cache_diff <= GSPMD_PREFILL_TOL
+                * max(w[k].float().abs().max().item() for w in want_caches for k in w)
+                and math.isfinite(diff)):
+            _fail("gspmd c: the DTensor prefill disagrees with the plain prefill")
+        if flash != cfg.num_layers:
+            _fail(f"gspmd c: {flash} flash launches, expected {cfg.num_layers}")
+        del model, placed, want, got, want_caches, got_caches
+        _free(torch)
 
-            # a: fp32 loss and gradients
-            cfg = dataclasses.replace(get_config(ARCH), dtype="float32", param_dtype="float32")
-            b, s = GSPMD_GRAD_SHAPE
-            shape = InputShape("train", s, b, "train")
-            bundle = registry.build(cfg, max_seq=s, device=dev)
-            model = bundle.init(torch.Generator(device=dev).manual_seed(0))
-            batch = to_device(next(pipeline.batches(cfg, shape)), dev)
-            lp, _, gp = value_and_grad(bundle, model, batch)
-            rules = sharding.make_rules(cfg, shape, mesh)
-            placed = _gspmd_place(model, batch, rules, mesh)
-            _reset_train_counts()
-            with sharding.use_rules(rules, mesh):
-                ld, _, gd = value_and_grad(bundle, model, placed)
+        # a: fp32 loss and gradients
+        cfg = dataclasses.replace(get_config(ARCH), dtype="float32", param_dtype="float32")
+        b, s = GSPMD_GRAD_SHAPE
+        shape = InputShape("train", s, b, "train")
+        bundle = registry.build(cfg, max_seq=s, device=dev)
+        model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        batch = to_device(next(pipeline.batches(cfg, shape)), dev)
+        lp, _, gp = value_and_grad(bundle, model, batch)
+        rules = sharding.make_rules(cfg, shape, mesh)
+        placed = _gspmd_place(model, batch, rules, mesh)
+        _reset_train_counts()
+        with sharding.use_rules(rules, mesh):
+            ld, _, gd = value_and_grad(bundle, model, placed)
+        torch.cuda.synchronize()
+        launches, want = _train_counts(), _train_want(cfg, 1)
+        gap = _grad_gap(torch, (ld, gd), (lp, gp))
+        out["grad"] = gap
+        print(f"gspmd a {ARCH} fp32 B {b} x S {s}: loss DTensor {gap['losses'][0]:.7f} "
+              f"plain {gap['losses'][1]:.7f} (rel {gap['loss']:.2e}, tol "
+              f"{GRAD_TOL['loss']}); grad norm rel {gap['norm']:.2e} (tol "
+              f"{GRAD_TOL['norm']}); worst leaf {gap['leaf']:.2e} at {gap['leaf_name']} "
+              f"(tol {GRAD_TOL['leaf']}); largest difference of the loss and every "
+              f"gradient {gap['max_abs_diff']:.3e} ({'bit-equal' if gap['max_abs_diff'] == 0 else 'not bit-equal'}); "
+              f"launches {COUNTS} {launches} (expected {want}); {len(gp)} leaves")
+        if not (gap["loss"] <= GRAD_TOL["loss"] and gap["norm"] <= GRAD_TOL["norm"]
+                and gap["leaf"] <= GRAD_TOL["leaf"]):
+            _fail("gspmd a: the DTensor path's loss or gradients disagree with phase 20's")
+        if launches != want:
+            _fail(f"gspmd a: launches {launches} != {want}")
+        del model, placed, gp, gd
+        _free(torch)
+
+        # b: one bf16 train step at phase 21's shape
+        cfg = get_config(ARCH)
+        b, s = TRAIN_SHAPE
+        shape = InputShape("train", s, b, "train")
+        bundle = registry.build(cfg, max_seq=s, device=dev)
+        model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        rules = sharding.make_rules(cfg, shape, mesh)
+        data = pipeline.batches(cfg, shape, seed=1)
+        batches = [_gspmd_place(model, to_device(next(data), dev), rules, mesh),
+                   specs.distribute_batch(to_device(next(data), dev), rules, mesh)]
+        opt_state = init_opt_state(param_tree(model))
+        step = make_train_step(bundle, OptimizerConfig(lr=3e-3, warmup_steps=1,
+                                                       total_steps=2))
+        torch.cuda.reset_peak_memory_stats()
+        with sharding.use_rules(rules, mesh):
+            _, opt_state, m0 = step(model, opt_state, batches[0])   # warm-up
             torch.cuda.synchronize()
-            launches, want = _train_counts(), _train_want(cfg, 1)
-            gap = _grad_gap(torch, (ld, gd), (lp, gp))
-            out["grad"] = gap
-            print(f"gspmd a {ARCH} fp32 B {b} x S {s}: loss DTensor {gap['losses'][0]:.7f} "
-                  f"plain {gap['losses'][1]:.7f} (rel {gap['loss']:.2e}, tol "
-                  f"{GRAD_TOL['loss']}); grad norm rel {gap['norm']:.2e} (tol "
-                  f"{GRAD_TOL['norm']}); worst leaf {gap['leaf']:.2e} at {gap['leaf_name']} "
-                  f"(tol {GRAD_TOL['leaf']}); largest difference of the loss and every "
-                  f"gradient {gap['max_abs_diff']:.3e} ({'bit-equal' if gap['max_abs_diff'] == 0 else 'not bit-equal'}); "
-                  f"launches {COUNTS} {launches} (expected {want}); {len(gp)} leaves")
-            if not (gap["loss"] <= GRAD_TOL["loss"] and gap["norm"] <= GRAD_TOL["norm"]
-                    and gap["leaf"] <= GRAD_TOL["leaf"]):
-                _fail("gspmd a: the DTensor path's loss or gradients disagree with phase 20's")
-            if launches != want:
-                _fail(f"gspmd a: launches {launches} != {want}")
-            del model, placed, gp, gd
-            _free(torch)
-
-            # b: one bf16 train step at phase 21's shape
-            cfg = get_config(ARCH)
-            b, s = TRAIN_SHAPE
-            shape = InputShape("train", s, b, "train")
-            bundle = registry.build(cfg, max_seq=s, device=dev)
-            model = bundle.init(torch.Generator(device=dev).manual_seed(0))
-            rules = sharding.make_rules(cfg, shape, mesh)
-            data = pipeline.batches(cfg, shape, seed=1)
-            batches = [_gspmd_place(model, to_device(next(data), dev), rules, mesh),
-                       specs.distribute_batch(to_device(next(data), dev), rules, mesh)]
-            opt_state = init_opt_state(param_tree(model))
-            step = make_train_step(bundle, OptimizerConfig(lr=3e-3, warmup_steps=1,
-                                                           total_steps=2))
-            torch.cuda.reset_peak_memory_stats()
-            with sharding.use_rules(rules, mesh):
-                _, opt_state, m0 = step(model, opt_state, batches[0])   # warm-up
-                torch.cuda.synchronize()
-                _reset_train_counts()
-                t1 = time.perf_counter()
-                _, opt_state, m1 = step(model, opt_state, batches[1])
-                torch.cuda.synchronize()
-            step_s = time.perf_counter() - t1
-            launches, want = _train_counts(), _train_want(cfg, 1)
-            losses = (float(m0["loss"]), float(m1["loss"]))
-            out["step"] = {"ms": step_s * 1e3, "launches": launches,
-                           "phase21_ms": None if granite_step_s is None else granite_step_s * 1e3}
-            was = ("not run" if granite_step_s is None
-                   else f"{granite_step_s * 1e3:.1f} ms a step (phase 21, after its step 1)")
-            print(f"gspmd b {ARCH} bf16 B {b} x S {s}: one train step through DTensor "
-                  f"{step_s * 1e3:.1f} ms after a warm-up step, beside {was}; losses {losses}; "
-                  f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
-                  f"{COUNTS} {launches} (expected {want}, phase 21's a step)")
-            if launches != want or not all(map(math.isfinite, losses)):
-                _fail(f"gspmd b: launches {launches} != {want} or losses {losses}")
-            del model, opt_state, batches
-            _free(torch)
-
-            # d: SMOKE jamba (AM), card through DTensor vs the CPU
-            b, s = SMOKE_TRAIN_SHAPE
-            host = registry.build_arch(HYBRID, smoke=True, max_seq=s, device="cpu")
-            card = registry.build_arch(HYBRID, smoke=True, max_seq=s, device=dev)
-            cfg = host.cfg
-            shape = InputShape("train", s, b, "train")
-            p_host = host.init(torch.Generator().manual_seed(0))
-            p_card = card.empty()
-            p_card.load_state_dict({k: v.to(dev, copy=True)
-                                    for k, v in p_host.state_dict().items()}, assign=True)
-            batch = next(pipeline.batches(cfg, shape))
-            lh, _, gh = value_and_grad(host, p_host, to_device(batch, torch.device("cpu")))
-            rules = sharding.make_rules(cfg, shape, mesh)
-            placed = _gspmd_place(p_card, to_device(batch, dev), rules, mesh)
             _reset_train_counts()
-            with sharding.use_rules(rules, mesh):
-                lc, _, gc = value_and_grad(card, p_card, placed)
+            t1 = time.perf_counter()
+            _, opt_state, m1 = step(model, opt_state, batches[1])
             torch.cuda.synchronize()
-            launches, want = _train_counts(), _train_want(cfg, 1)
-            gap = _grad_gap(torch, (lc, gc), (lh, {k: v.to(dev) for k, v in gh.items()}))
-            out["smoke"] = gap
-            print(f"gspmd d {HYBRID} SMOKE ({cfg.layer_pattern}) fp32 B {b} x S {s}: loss card "
-                  f"DTensor {gap['losses'][0]:.7f} CPU {gap['losses'][1]:.7f} (tol "
-                  f"{SMOKE_TRAIN_TOL}); worst leaf {gap['leaf']:.2e} at {gap['leaf_name']} (tol "
-                  f"{GRAD_TOL['leaf']}); launches {COUNTS} {launches} (expected {want})")
-            lg, lw = gap["losses"]
-            if not (abs(lg - lw) <= SMOKE_TRAIN_TOL * (1.0 + abs(lw))
-                    and gap["leaf"] <= GRAD_TOL["leaf"]):
-                _fail("gspmd d: the card's DTensor loss or gradients disagree with the CPU's")
-            if launches != want or not launches[2]:
-                _fail(f"gspmd d: launches {launches} != {want}")
-            del p_card, placed, gc
-            _free(torch)
-        finally:
-            dist.destroy_process_group()
+        step_s = time.perf_counter() - t1
+        launches, want = _train_counts(), _train_want(cfg, 1)
+        losses = (float(m0["loss"]), float(m1["loss"]))
+        out["step"] = {"ms": step_s * 1e3, "launches": launches,
+                       "phase21_ms": None if granite_step_s is None else granite_step_s * 1e3}
+        was = ("not run" if granite_step_s is None
+               else f"{granite_step_s * 1e3:.1f} ms a step (phase 21, after its step 1)")
+        print(f"gspmd b {ARCH} bf16 B {b} x S {s}: one train step through DTensor "
+              f"{step_s * 1e3:.1f} ms after a warm-up step, beside {was}; losses {losses}; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+              f"{COUNTS} {launches} (expected {want}, phase 21's a step)")
+        if launches != want or not all(map(math.isfinite, losses)):
+            _fail(f"gspmd b: launches {launches} != {want} or losses {losses}")
+        del model, opt_state, batches
+        _free(torch)
+
+        # d: SMOKE jamba (AM), card through DTensor vs the CPU
+        b, s = SMOKE_TRAIN_SHAPE
+        host = registry.build_arch(HYBRID, smoke=True, max_seq=s, device="cpu")
+        card = registry.build_arch(HYBRID, smoke=True, max_seq=s, device=dev)
+        cfg = host.cfg
+        shape = InputShape("train", s, b, "train")
+        p_host = host.init(torch.Generator().manual_seed(0))
+        p_card = card.empty()
+        p_card.load_state_dict({k: v.to(dev, copy=True)
+                                for k, v in p_host.state_dict().items()}, assign=True)
+        batch = next(pipeline.batches(cfg, shape))
+        lh, _, gh = value_and_grad(host, p_host, to_device(batch, torch.device("cpu")))
+        rules = sharding.make_rules(cfg, shape, mesh)
+        placed = _gspmd_place(p_card, to_device(batch, dev), rules, mesh)
+        _reset_train_counts()
+        with sharding.use_rules(rules, mesh):
+            lc, _, gc = value_and_grad(card, p_card, placed)
+        torch.cuda.synchronize()
+        launches, want = _train_counts(), _train_want(cfg, 1)
+        gap = _grad_gap(torch, (lc, gc), (lh, {k: v.to(dev) for k, v in gh.items()}))
+        out["smoke"] = gap
+        print(f"gspmd d {HYBRID} SMOKE ({cfg.layer_pattern}) fp32 B {b} x S {s}: loss card "
+              f"DTensor {gap['losses'][0]:.7f} CPU {gap['losses'][1]:.7f} (tol "
+              f"{SMOKE_TRAIN_TOL}); worst leaf {gap['leaf']:.2e} at {gap['leaf_name']} (tol "
+              f"{GRAD_TOL['leaf']}); launches {COUNTS} {launches} (expected {want})")
+        lg, lw = gap["losses"]
+        if not (abs(lg - lw) <= SMOKE_TRAIN_TOL * (1.0 + abs(lw))
+                and gap["leaf"] <= GRAD_TOL["leaf"]):
+            _fail("gspmd d: the card's DTensor loss or gradients disagree with the CPU's")
+        if launches != want or not launches[2]:
+            _fail(f"gspmd d: launches {launches} != {want}")
+        del p_card, placed, gc
+        _free(torch)
     print(f"phase gspmd: {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# phase 31: decode under the decode rules.  a: granite's bf16 decode from a
+# 496-token prefill at max_seq 512 (the writes land inside the cache); b: the
+# split softmax at granite's and internvl2's (G 7) decode shapes, the cache's
+# rows cut into 2 and 4 slices, the first SPLIT_VALID rows valid (a slice of
+# 256 and two of 128 wholly masked)
+GSPMD_DECODE_PROMPT = 496
+SPLIT_SHAPES, SPLIT_PARTS, SPLIT_VALID = ("granite", "internvl2"), (2, 4), 200
+SPLIT_STATS_TOL = 1e-5          # the statistics' fp32 numbers, kernel vs plain
+
+
+def _split_softmax(torch, q, k, v, mask, parts):
+    """The hand kernel's statistics on ``parts`` contiguous row slices and
+    their merge (``ops.combine_partials``): what each rank of a world that
+    splits a cache's rows computes, in one process.  Returns the merge, each
+    slice's (out, m, l) and the slices."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import ops
+
+    n = k.shape[1] // parts
+    cut = [(k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n], mask[:, i * n:(i + 1) * n])
+           for i in range(parts)]
+    stats = [kd.decode_attention_hopper(q, ks, vs, ms, stats=True) for ks, vs, ms in cut]
+    merged = ops.combine_partials(*(torch.stack(t) for t in zip(*stats)), dtype=q.dtype)
+    return merged, stats, cut
+
+
+def gspmd_decode_phase(torch, dev):
+    """Phase 31: decode under the decode rules.
+    a: on a one-rank NCCL world with a (1, 1) ("data", "model") mesh,
+    full-width granite-3-2b in bf16: a 496-token prefill at max_seq 512,
+    the caches placed by ``specs.distribute_caches``, then DECODE_STEPS
+    decode steps through DTensor (the token by ``distribute_token``): each
+    step's logits and every cache leaf bit-equal to the plain
+    ``decode_step`` from the same prefill caches, the decode launches equal
+    (40 a step); the ms a token through DTensor beside the plain ms a token
+    (DTensor's host cost, no gate).
+    b: the split softmax in one process, at granite's and internvl2's (G 7)
+    decode shapes over a 512-row cache, fp32 and bf16: the hand kernel with
+    ``stats=True`` on 2 and 4 contiguous row slices (some wholly masked) and
+    ``ops.combine_partials``, against the whole-cache kernel call and the
+    plain version (the attention gates), each slice's (out, m, l) against
+    the plain version's (SPLIT_STATS_TOL; m = -1e30 and l = the row count
+    exactly on a masked slice); the statistics instantiation timed beside
+    the serving one.  Returns (a's decode launches, b's split-path
+    launches, b's numbers)."""
+    import torch.nn.functional as F
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import sharding
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels.ref import NEG_INF
+    from repro_torch.launch import roofline, specs
+    from repro_torch.models import registry
+
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    shape = InputShape("decode", MAX_SEQ, 1, "decode")
+    bundle = registry.build(cfg, shape, max_seq=MAX_SEQ, device=dev)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (1, GSPMD_DECODE_PROMPT), device=dev,
+                           generator=gen, dtype=torch.int32)
+    fed = torch.randint(0, cfg.vocab_size, (DECODE_STEPS, 1), device=dev, generator=gen,
+                        dtype=torch.int32)
+
+    def steps(caches, pos, token=lambda t: t):
+        logits = []
+        for i in range(DECODE_STEPS):
+            lg, caches = bundle.decode_step(model, caches, token(fed[i]), pos + i)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        return logits, caches
+
+    def timed(run):
+        t1 = time.perf_counter()
+        run()
+        return (time.perf_counter() - t1) * 1e3 / DECODE_STEPS
+
+    with torch.no_grad():
+        _, prefilled, pos = bundle.prefill(model, {"tokens": prompt})
+        kd.launches = 0
+        want, want_caches = steps(prefilled, pos)
+        plain_launches = kd.launches
+        plain_ms = timed(lambda: steps(prefilled, pos))
+    with _nccl_world():
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        rules = sharding.make_rules(cfg, shape, mesh)
+        specs.distribute_params(model, rules, mesh)
+        placed = specs.distribute_caches(prefilled, rules, mesh)
+        placements = [t.placements for c in placed for t in c.values()]
+
+        def token(t):
+            return specs.distribute_token(t, rules, mesh)
+
+        with sharding.use_rules(rules, mesh), torch.no_grad():
+            kd.launches = 0
+            got, got_caches = steps(placed, pos, token)
+            launches = kd.launches
+            dtensor_ms = timed(lambda: steps(placed, pos, token))
+        logit_diff = max((g.full_tensor().float() - w.float()).abs().max().item()
+                         for g, w in zip(got, want))
+        cache_diff = max((g[n].full_tensor().float() - w[n].float()).abs().max().item()
+                         for g, w in zip(got_caches, want_caches) for n in w)
+        kept = [t.placements for c in got_caches for t in c.values()] == placements
+    print(f"gspmd-decode a {ARCH} bf16 on a (1, 1) NCCL mesh: {GSPMD_DECODE_PROMPT}-token "
+          f"prefill at max_seq {MAX_SEQ}, then {DECODE_STEPS} decode steps through DTensor "
+          f"(caches by distribute_caches, token by distribute_token): logits max|diff| "
+          f"{logit_diff:.3e}, caches max|diff| {cache_diff:.3e} against the plain decode "
+          f"(bit-equal expected); cache placements kept {kept}; decode launches {launches} "
+          f"(plain {plain_launches}, expected {cfg.num_layers * DECODE_STEPS}); "
+          f"{dtensor_ms:.2f} ms a token through DTensor, {plain_ms:.2f} plain "
+          f"({dtensor_ms / plain_ms:.2f}x; host clock, the second of two runs)")
+    if logit_diff != 0 or cache_diff != 0 or not kept:
+        _fail("gspmd-decode a: the DTensor decode is not bit-equal to the plain decode, "
+              "or a cache left its placements")
+    if not launches == plain_launches == cfg.num_layers * DECODE_STEPS:
+        _fail(f"gspmd-decode a: decode launches {launches}, plain {plain_launches}")
+    del model, prefilled, placed, want_caches, got_caches
+    _free(torch)
+
+    # b: the split softmax on the card
+    gen = torch.Generator(device=dev).manual_seed(6)
+    split_launches, out = 0, {}
+    for name in SPLIT_SHAPES:
+        hq, hkv, d = ATTN_SHAPES[name]
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            q = torch.randn((1, hq, d), generator=gen, device=dev).to(tdt)
+            k, v = (torch.randn((1, MAX_SEQ, hkv, d), generator=gen, device=dev).to(tdt)
+                    for _ in range(2))
+            mask = (torch.arange(MAX_SEQ, device=dev) < SPLIT_VALID)[None].contiguous()
+            whole = kd.decode_attention_hopper(q, k, v, mask)
+            plain = kd.decode_attention_plain(q, k, v, mask)
+            for parts in SPLIT_PARTS:
+                before = kd.launches
+                merged, stats, cut = _split_softmax(torch, q, k, v, mask, parts)
+                split_launches += kd.launches - before
+                torch.cuda.synchronize()
+                err_whole, ok_whole = _close(merged, whole, KERNEL_TOL[dtype])
+                err_plain, ok_plain = _close(merged, plain, KERNEL_TOL[dtype])
+                err_stats, ok_stats, masked_ok = 0.0, True, True
+                for (ks, vs, ms), got_s in zip(cut, stats):
+                    want_s = kd.decode_attention_plain(q, ks, vs, ms, stats=True)
+                    for g, w in zip(got_s, want_s):
+                        e, ok = _close(g, w, SPLIT_STATS_TOL)
+                        err_stats, ok_stats = max(err_stats, e), ok_stats and ok
+                    if not ms.any():
+                        masked_ok &= bool((got_s[1] == NEG_INF).all()
+                                          and (got_s[2] == ks.shape[1]).all())
+                n_masked = sum(not ms.any() for _, _, ms in cut)
+                print(f"gspmd-decode b {name} {hq}/{hkv} D={d} {dtype} S {MAX_SEQ} in {parts} "
+                      f"slices ({n_masked} wholly masked, {SPLIT_VALID} valid rows): merge vs "
+                      f"whole-cache kernel {err_whole:.3e}, vs plain {err_plain:.3e} (tol "
+                      f"{KERNEL_TOL[dtype]}); statistics vs plain {err_stats:.3e} (tol "
+                      f"{SPLIT_STATS_TOL}); masked slices m = -1e30, l = rows {masked_ok}")
+                if not (ok_whole and ok_plain and ok_stats and masked_ok and n_masked
+                        and torch.isfinite(merged.float()).all()):
+                    _fail(f"gspmd-decode b: {name} {dtype} in {parts} slices disagrees")
+    # the statistics instantiation timed beside the serving one, at granite's
+    # bf16 decode shape over the whole (all-valid) 512-row cache
+    hq, hkv, d = ATTN_SHAPES["granite"]
+    q = torch.randn((1, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, MAX_SEQ, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    mask = torch.ones((1, MAX_SEQ), dtype=torch.bool, device=dev)
+    got = kd.decode_attention_hopper(q, k, v, mask, stats=True)
+    want = kd.decode_attention_plain(q, k, v, mask, stats=True)
+    torch.cuda.synchronize()
+    err = max(_close(g, w, SPLIT_STATS_TOL)[0] for g, w in zip(got, want))
+    qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    out = dict(max_abs_err=err, bound=_bound(roofline.decode_work(
+                   1, MAX_SEQ, hq, hkv, d, 2, MAX_SEQ, stats=True)),
+               ms=_graph_ms(torch, lambda: kd.decode_attention_hopper(q, k, v, mask, stats=True)),
+               launch_ms=_time_ms(torch, lambda: kd.decode_attention_hopper(q, k, v, mask,
+                                                                            stats=True)),
+               serving_ms=_graph_ms(torch, lambda: kd.decode_attention_hopper(q, k, v, mask)),
+               serving_launch_ms=_time_ms(torch, lambda: kd.decode_attention_hopper(q, k, v,
+                                                                                    mask)),
+               plain_ms=_graph_ms(torch, lambda: kd.decode_attention_plain(q, k, v, mask,
+                                                                           stats=True)),
+               library_ms=_graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, enable_gqa=True)))
+    print(f"time decode_attention statistics instantiation bf16 (granite {hq}/{hkv} heads, D "
+          f"{d}, S {MAX_SEQ}, all valid), device (graph replay): {out['ms']:.4f} ms "
+          f"[{out['launch_ms']:.4f}] beside the serving instantiation {out['serving_ms']:.4f} "
+          f"[{out['serving_launch_ms']:.4f}]; plain (stats) {out['plain_ms']:.4f} ms, sdpa "
+          f"{out['library_ms']:.4f} ms, bound {out['bound'][0]:.5f} ms ({out['bound'][1]}); "
+          f"statistics vs plain {err:.3e}; the split path launched it {split_launches} times")
+    print(f"phase gspmd-decode: {time.perf_counter() - t0:.1f} s")
+    return launches, split_launches, out
 
 
 def main() -> int:
@@ -3082,6 +3293,7 @@ def main() -> int:
                            f"{ARCH} prefill": launches["prefill_s"],
                            f"{HYBRID} x{HYBRID_TRAIN_LAYERS} train": hybrid_train["step_s"]})
     gspmd_phase(torch, dev, granite_train["step_s"])
+    gsd_launches, split_launches, timed_stats = gspmd_decode_phase(torch, dev)
     # a kernel on several main paths: each path's launches (counts set to 0
     # just before it, read just after) and its numbers at that path's shape.
     # whisper's prefill runs its 32 layers' flash calls at three shapes
@@ -3111,6 +3323,7 @@ def main() -> int:
                  ("jamba-smoke-train", smoke_launches[3], ssm_timed[("bwd", "smoke")])],
              "decode_attention": [
                  ("engine", launches["decode_attention"], at("decode_attention", "granite", "decode")),
+                 ("gspmd-decode", gsd_launches, at("decode_attention", "granite", "decode")),
                  *((f"whisper-{name}", w["decode_attention"] // 2,
                     at("decode_attention", "whisper", name)) for name in ("self", "cross")),
                  ("internvl2", vl["decode_attention"], at("decode_attention", "internvl2", "decode"))],
@@ -3120,7 +3333,8 @@ def main() -> int:
              "decode_attention": at("decode_attention", "granite", "decode"),
              "ssm_scan": timed["ssm_scan"], "cluster_step": timed["cluster_step"],
              "flash_attention_bwd": train_timed[("bwd", "granite")],
-             "ssm_scan_bwd": ssm_timed[("bwd", "jamba")]}
+             "ssm_scan_bwd": ssm_timed[("bwd", "jamba")],
+             "decode_attention_stats": timed_stats}
 
     # the backwards have no TPU kernel: the JAX package trains through
     # jax.vjp of its jnp flash attention (ops.py:46, _flash_reference) and of
@@ -3130,16 +3344,23 @@ def main() -> int:
                 "decode_attention": "src/repro/kernels/decode_attention.py:57",
                 "cluster_step": "src/repro/kernels/cluster_step.py:237",
                 "ssm_scan": "src/repro/kernels/ssm_scan.py:62",
-                "ssm_scan_bwd": "src/repro/kernels/ops.py:146"}
+                "ssm_scan_bwd": "src/repro/kernels/ops.py:146",
+                "decode_attention_stats": "src/repro/kernels/decode_attention.py:57"}
     def numbers(t):
         return {"max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
 
+    # the decode kernel's statistics instantiation (the combine writes the
+    # fp32 output and each row's (m, l)) runs where a mesh splits a cache's
+    # rows: its launches are phase 31b's split path (one process standing for
+    # the ranks of such a world; a one-card mesh splits nothing)
+    launches["decode_attention_stats"] = split_launches
+    sources = {"decode_attention_stats": "decode_attention"}
     kernels = []
     for name, t in timed.items():
         entry = {"name": name, "route": "cuda",
-                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                 "source": f"src/repro_torch/kernels/csrc/{sources.get(name, name)}.cu",
                  "replaces": replaces[name], "launches": launches.get(name), **numbers(t)}
         if name in paths:
             entry["launches"] = sum(n for _, n, _ in paths[name])

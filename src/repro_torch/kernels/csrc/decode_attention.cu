@@ -24,7 +24,16 @@
 // has m = NEG_INF, l = its row count and acc = the sum of its V; its weight is
 // exactly 0 once some chunk holds a valid key, and when every key is masked
 // the result is the mean of V, as in the reference.  Rows past S do not exist
-// (they are skipped, not masked).  Any G and any D that is a multiple of 8 up
+// (they are skipped, not masked).
+//
+// Row statistics (the STATS instantiation of the combine): given three fp32
+// outputs, the combine writes the normalised output in fp32 and each row's
+// M = max_s m_s and L = sum_s l_s e^(m_s - M) instead of the output in the
+// cache's dtype, so that a caller holding only some of a cache's rows (a
+// cache split over ranks) can merge its softmax with the other rows' and
+// round to the cache's dtype once, at the end.  The conventions are the
+// split kernel's: a row with no valid key has M = NEG_INF, L = its row count
+// and the mean of its V.  Any G and any D that is a multiple of 8 up
 // to 128; the shared accumulator grows with G * D (dynamic shared memory).
 //
 // What bounds it on the card: device-memory bytes (each cache byte is read
@@ -291,10 +300,11 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 // serialization: its blocks start while the split kernel runs and wait for
 // it at griddepcontrol.wait.  The splits' weights are computed once, in
 // shared memory; each thread's column loads are issued BATCH at a time.
-template <typename T>
+template <typename T, bool STATS>
 __global__ void __launch_bounds__(THREADS)
 decode_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-               T* __restrict__ out, int Hq, int D, int splits) {
+               T* __restrict__ out, float* __restrict__ out_f32, float* __restrict__ m_out,
+               float* __restrict__ l_out, int Hq, int D, int splits) {
   __shared__ float sw[MAX_SPLITS];
   __shared__ float sl[MAX_SPLITS];
   const int h = blockIdx.x;
@@ -331,13 +341,22 @@ decode_combine(const float* __restrict__ part_acc, const float* __restrict__ par
     for (int u = 0; u < BATCH; ++u)
       if (s0 + u < splits) a = fmaf(sw[s0 + u], x[u], a);
   }
-  from_float(out + head * D + tid, a / fmaxf(l, 1e-30f));
+  const float r = a / fmaxf(l, 1e-30f);
+  if constexpr (STATS) {
+    out_f32[head * D + tid] = r;
+    if (tid == 0) {
+      m_out[head] = m;
+      l_out[head] = l;
+    }
+  } else {
+    from_float(out + head * D + tid, r);
+  }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out,
-           void* scratch, int B, int S, int Hq, int Hkv, int D, int splits, float scale,
-           cudaStream_t stream) {
+           void* scratch, float* out_f32, float* m, float* l, int B, int S, int Hq, int Hkv,
+           int D, int splits, float scale, cudaStream_t stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || D < 8 || D > 128 || D % 8 != 0 || splits < 1 ||
       splits > MAX_SPLITS || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -373,9 +392,13 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_combine<T>, static_cast<const float*>(part_acc),
-                           static_cast<const float*>(part_ml), static_cast<T*>(out), Hq, D,
-                           splits);
+  const float* pa = part_acc;
+  const float* pm = part_ml;
+  err = out_f32 != nullptr
+            ? cudaLaunchKernelEx(&cfg, decode_combine<T, true>, pa, pm, static_cast<T*>(out),
+                                 out_f32, m, l, Hq, D, splits)
+            : cudaLaunchKernelEx(&cfg, decode_combine<T, false>, pa, pm, static_cast<T*>(out),
+                                 out_f32, m, l, Hq, D, splits);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -385,17 +408,27 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
 extern "C" {
 
 // Returns the CUDA error of the launches (0 on success).  dtype: 0 fp32,
-// 1 bf16.  scratch: B * Hq * splits * (D + 2) floats.
+// 1 bf16.  scratch: B * Hq * splits * (D + 2) floats.  out_f32, m, l: null
+// (serving: the output in the cache's dtype into out), or fp32 (B, Hq, D),
+// (B, Hq) and (B, Hq) buffers for the normalised output and each row's max
+// score and sum of exponentials (out is then not written); all three or none.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
-                         const void* valid, void* out, void* scratch, int B, int S,
-                         int Hq, int Hkv, int D, int splits, float scale, int dtype,
-                         void* stream) {
+                         const void* valid, void* out, void* scratch, void* out_f32,
+                         void* m, void* l, int B, int S, int Hq, int Hkv, int D, int splits,
+                         float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool stats = out_f32 != nullptr;
+  if (stats != (m != nullptr) || stats != (l != nullptr) || (!stats && out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* of = static_cast<float*>(out_f32);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
   if (dtype == 0)
-    return launch<float>(q, k, v, valid, out, scratch, B, S, Hq, Hkv, D, splits, scale, st);
+    return launch<float>(q, k, v, valid, out, scratch, of, mf, lf, B, S, Hq, Hkv, D, splits,
+                         scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, valid, out, scratch, B, S, Hq, Hkv, D, splits,
-                                 scale, st);
+    return launch<__nv_bfloat16>(q, k, v, valid, out, scratch, of, mf, lf, B, S, Hq, Hkv, D,
+                                 splits, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,7 +6,11 @@ wrapper launches the kernel for a CUDA tensor (or raises) and runs
 :func:`decode_attention_plain` for a CPU tensor; nothing falls back.  The
 kernel splits the cache across blocks (:func:`decode_splits`) and combines
 the fp32 partials in a second device kernel of the same C call, into scratch
-that the wrapper allocates.  :func:`shape_error` is its shape rule, pure
+that the wrapper allocates.  With ``stats=True`` the combine writes, instead
+of the output in the cache's dtype, the normalised output in fp32 and each
+row's max score m and sum of exponentials l: what a rank holding some of a
+cache's rows needs to merge its softmax with the other ranks'
+(``ops.combine_partials``).  :func:`shape_error` is its shape rule, pure
 Python, so the CPU tests can hold every model config to it.
 """
 from __future__ import annotations
@@ -23,8 +27,7 @@ from repro_torch.kernels.ref import NEG_INF
 launches = 0   # kernel launches; chip_smoke.py resets and reads it
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"decode_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _I, ctypes.c_float, _I, _P)}
+_SIGNATURES = {"decode_attention_fwd": (_P,) * 9 + (_I,) * 6 + (ctypes.c_float, _I, _P)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MIN_CHUNK = 32            # cache rows a split takes at least
@@ -79,16 +82,27 @@ def shape_error(b: int, s: int, hq: int, hkv: int, d: int) -> Optional[str]:
     return None
 
 
-def decode_attention_plain(q, k_cache, v_cache, valid_mask):
+def decode_attention_plain(q, k_cache, v_cache, valid_mask, *, stats: bool = False):
     """Masked softmax over the cache in fp32, grouped-query, cast back.
 
-    q: (B, Hq, D); caches (B, S, Hkv, D); valid_mask (B, S) bool.
+    q: (B, Hq, D); caches (B, S, Hkv, D); valid_mask (B, S) bool.  With
+    ``stats``, returns ``(out, m, l)`` in fp32: the normalised output
+    (B, Hq, D), each row's max score m and its sum of exponentials
+    l = sum_s e^(s - m) (B, Hq), under the kernel's conventions (a masked
+    score is NEG_INF itself, so a row with no valid key has m = NEG_INF,
+    l = S and the mean of V).
     """
     b, hq, d = q.shape
     hkv = k_cache.shape[2]
     qf = q.float().reshape(b, hkv, hq // hkv, d) * (1.0 / d ** 0.5)
     s = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float())
     s = torch.where(valid_mask[:, None, None, :], s, NEG_INF)
+    if stats:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1)
+        out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float()) / l[..., None]
+        return out.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     return out.reshape(b, hq, d).to(q.dtype)
@@ -131,17 +145,26 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def decode_attention_hopper(q, k_cache, v_cache, valid_mask):
-    """q: (B, Hq, D); caches (B, S, Hkv, D); valid_mask (B, S) -> (B, Hq, D).
+def _stats_like(q):
+    b, hq, d = q.shape
+    return (torch.empty((b, hq, d), dtype=torch.float32, device=q.device),
+            torch.empty((b, hq), dtype=torch.float32, device=q.device),
+            torch.empty((b, hq), dtype=torch.float32, device=q.device))
+
+
+def decode_attention_hopper(q, k_cache, v_cache, valid_mask, *, stats: bool = False):
+    """q: (B, Hq, D); caches (B, S, Hkv, D); valid_mask (B, S) -> (B, Hq, D),
+    or with ``stats`` ``(out, m, l)`` in fp32 as :func:`decode_attention_plain`
+    gives them (the kernel's statistics instantiation).
 
     A CUDA tensor goes to the hand kernel, a CPU tensor to the plain version,
     a meta tensor (the dry run) to an empty output: no launch, no count.
     """
     global launches
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, valid_mask)
+        return decode_attention_plain(q, k_cache, v_cache, valid_mask, stats=stats)
     if q.device.type == "meta":
-        return torch.empty_like(q)
+        return _stats_like(q) if stats else torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cuda or cpu, not {q.device}")
     _build.refuse_grad("decode_attention", "decode serves, it is never trained through",
@@ -151,11 +174,14 @@ def decode_attention_hopper(q, k_cache, v_cache, valid_mask):
     b, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     splits = decode_splits(b, s, hkv, _sms(q.device.index or 0))
-    out = torch.empty_like(q)
     scratch = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32, device=q.device)
+    # the output in q's dtype, or (null and) the fp32 output, m and l
+    out = _stats_like(q) if stats else torch.empty_like(q)
+    out_ptr, stat_ptrs = ((None, [t.data_ptr() for t in out]) if stats
+                          else (out.data_ptr(), [None] * 3))
     code = _build.call(
         q.device, lib.decode_attention_fwd, q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), valid_mask.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        v_cache.data_ptr(), valid_mask.data_ptr(), out_ptr, scratch.data_ptr(), *stat_ptrs,
         b, s, hq, hkv, d, splits, 1.0 / (d ** 0.5), _DTYPES[q.dtype])
     _build.check(lib, "decode_attention", code)
     launches += 1

@@ -8,12 +8,16 @@ Same signatures and defaults as the JAX package.  Each op has two paths:
 
 ``ssm_step`` is plain torch, as it is plain jnp in the JAX package.
 
-Given DTensors (the GSPMD path, ``sharding.py``), ``flash_attention`` and
-``ssm_scan`` run through ``local_map``: the inputs are redistributed to the
-layout the first one (q, u) asks for, and the same hand kernel (its
-autograd function when a gradient is wanted, its plain version on the CPU)
-runs on each rank's local shard.  Nothing is gathered whole and nothing
-falls back: a layout the route cannot split raises.
+Given DTensors (the GSPMD path, ``sharding.py``), ``flash_attention``,
+``ssm_scan`` and ``ssm_step`` run through ``local_map``: the inputs are
+redistributed to the layout the first one (q, u) asks for, and the same
+hand kernel (its autograd function when a gradient is wanted, its plain
+version on the CPU) runs on each rank's local shard.  ``decode_attention``
+follows the caches' layout instead (the decode rules split their batch and
+their rows): each rank runs the decode kernel on its own rows, and where
+the rows are split the ranks' partial softmaxes are merged by
+:func:`combine_partials`.  Nothing is gathered whole and nothing falls
+back: a layout the route cannot split raises.
 """
 from __future__ import annotations
 
@@ -127,15 +131,90 @@ def _flash_sharded(q, k, v, causal, window, q_pos, kv_pos, impl):
 
 def decode_attention(q, k_cache, v_cache, valid_mask, *, impl: str = "reference"):
     """q: (B,Hq,D); caches (B,S,Hkv,D); valid_mask (B,S) -> (B,Hq,D).  DTensor
-    inputs raise: decode under the decode rules (caches split over
-    ``cache_seq``) needs a softmax combined across ranks (ROADMAP A9)."""
+    inputs go through :func:`_decode_sharded`."""
     _check_impl(impl)
     if sharding.is_dtensor(q) or sharding.is_dtensor(k_cache):
-        raise NotImplementedError("decode attention on DTensors (decode under the decode "
-                                  "rules) is ROADMAP item A9")
+        return _decode_sharded(q, k_cache, v_cache, valid_mask, impl)
+    return _decode_local(q, k_cache, v_cache, valid_mask, impl)
+
+
+def _decode_local(q, k_cache, v_cache, valid_mask, impl, stats=False):
     if impl == "oracle":
-        return _ref.decode_attention_ref(q, k_cache, v_cache, valid_mask)
-    return decode_attention_hopper(q, k_cache, v_cache, valid_mask)
+        return _ref.decode_attention_ref(q, k_cache, v_cache, valid_mask, stats=stats)
+    return decode_attention_hopper(q, k_cache, v_cache, valid_mask, stats=stats)
+
+
+def combine_partials(out, m, l, groups=None, *, dtype=None):
+    """Merge partial softmaxes taken over disjoint rows of one cache: each
+    part's fp32 normalised output ``out`` (..., D), max score ``m`` and sum
+    of exponentials ``l`` (...), as the decode kernel writes them with
+    ``stats=True``.  With ``groups`` (process groups) each rank holds its own
+    part, and the merge all-reduces over every group: M = max m, then the
+    sums of out · w and w with w = l · e^(m - M).  Without, the parts are
+    stacked on dim 0 and merged there.  Returns sum(out · w) / max(sum(w),
+    1e-30) in ``dtype`` (default: ``out``'s), rounded once.  A part whose
+    rows are all masked (m = -1e30) weighs exactly 0 beside a part with a
+    valid key; where no part has one, the result is the mean of every V."""
+    if groups is None:
+        top = m.amax(dim=0)
+        w = l * torch.exp(m - top)
+        num, den = (out * w[..., None]).sum(dim=0), w.sum(dim=0)
+    else:
+        import torch.distributed as dist
+
+        top = m.clone()
+        for g in groups:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
+        w = l * torch.exp(m - top)
+        both = torch.cat([out * w[..., None], w[..., None]], dim=-1)
+        for g in groups:
+            dist.all_reduce(both, group=g)
+        num, den = both[..., :-1], both[..., -1]
+    return (num / den.clamp(min=1e-30)[..., None]).to(dtype or out.dtype)
+
+
+def _decode_sharded(q, k_cache, v_cache, valid_mask, impl):
+    """Decode attention on DTensors through ``local_map``, in the caches'
+    layout (``specs.cache_pspec``): a mesh dim that splits their batch splits
+    q's and the mask's alike; one that splits their rows (``cache_seq``)
+    splits the mask's, and q is whole there.  Each rank runs the kernel on
+    its own rows; where a mesh dim splits them, with ``stats=True``, and
+    :func:`combine_partials` merges the ranks' softmaxes over that dim's
+    process group.  Where the rows are whole (a cross cache, a mesh whose
+    row axis has one rank) the kernel runs as on one device.  The output
+    is whole over the row-splitting dims.  A plain cache beside a DTensor
+    q, and a cache split on any other dim, are refused."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not all(map(sharding.is_dtensor, (q, k_cache, v_cache))):
+        raise ValueError("decode attention on DTensors takes q and both caches as DTensors: "
+                         "place the caches with launch.specs.distribute_caches")
+    mesh = k_cache.device_mesh
+    qp, kp, mp, groups = [], [], [], []
+    for i, p in enumerate(k_cache.placements):
+        if p.is_shard(0):
+            qp.append(p), kp.append(p), mp.append(p)
+        elif p.is_shard(1):
+            qp.append(Replicate()), kp.append(p), mp.append(p)
+            groups.append(mesh.get_group(i))
+        elif p.is_replicate():
+            qp.append(p), kp.append(p), mp.append(p)
+        else:
+            raise ValueError(f"a KV cache placed {k_cache.placements}: decode attention "
+                             f"splits a cache's batch or rows only")
+    valid_mask = sharding.replicate_like(valid_mask, k_cache)
+
+    def local(q, k, v, mask):
+        q, k, v, mask = (t.contiguous() for t in (q, k, v, mask))
+        if not groups:
+            return _decode_local(q, k, v, mask, impl)
+        out, m, l = _decode_local(q, k, v, mask, impl, stats=True)
+        return combine_partials(out, m, l, groups, dtype=q.dtype)
+
+    fn = local_map(local, out_placements=qp, in_placements=(qp, kp, kp, mp),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k_cache, v_cache, valid_mask)
 
 
 def ssm_scan(u, delta, A, B, C, D, h0, *, chunk: int = 256,
@@ -194,7 +273,34 @@ def _scan_sharded(u, delta, A, B, C, D, h0, impl):
 
 
 def ssm_step(u, delta, A, B, C, D, h):
-    """Single decode step of the selective scan: (B, Din) inputs, fp32 state."""
+    """Single decode step of the selective scan: (B, Din) inputs, fp32 state.
+    DTensor inputs go through :func:`_step_sharded`."""
+    if sharding.is_dtensor(u):
+        return _step_sharded(u, delta, A, B, C, D, h)
+    return _step_local(u, delta, A, B, C, D, h)
+
+
+def _step_sharded(u, delta, A, B, C, D, h):
+    """:func:`ssm_step` on DTensors through ``local_map``, each mesh dim
+    keeping u's split: of the batch (``B``, ``C`` and the state alike,
+    ``A`` / ``D`` whole) or of the channels (``delta``, ``A``, ``D`` and the
+    state alike, ``B`` / ``C`` whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rep = Replicate()
+    by_split = {0: (Shard(0), rep, Shard(0), rep, Shard(0)),   # u, A, B / C, D, h
+                1: (Shard(1), Shard(0), rep, Shard(0), Shard(1))}
+    cols = [by_split.get(next((d for d in (0, 1) if p.is_shard(d)), None), (rep,) * 5)
+            for p in u.placements]
+    up, ap, bp, dp, hp = ([c[i] for c in cols] for i in range(5))
+    fn = local_map(_step_local, out_placements=(up, hp),
+                   in_placements=(up, up, ap, bp, bp, dp, hp),
+                   device_mesh=u.device_mesh, redistribute_inputs=True)
+    return fn(u, delta, A, B, C, D, h)
+
+
+def _step_local(u, delta, A, B, C, D, h):
     uf, df = u.float(), delta.float()
     h = torch.exp(df[..., None] * A.float()[None]) * h \
         + (df * uf)[..., None] * B.float()[:, None, :]

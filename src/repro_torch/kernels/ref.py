@@ -57,17 +57,23 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return out.to(q.dtype)
 
 
-def decode_attention_ref(q, k_cache, v_cache, valid_mask):
+def decode_attention_ref(q, k_cache, v_cache, valid_mask, *, stats: bool = False):
     """Single-token decode oracle.
 
     q: (B, Hq, D); caches: (B, S, Hkv, D); valid_mask: (B, S) bool.
-    Returns (B, Hq, D).
+    Returns (B, Hq, D); with ``stats`` the fp32 output, each row's max score
+    and its sum of exponentials, as ``decode_attention_plain`` gives them.
     """
     b, hq, d = q.shape
     k = _gqa_expand(k_cache, hq)
     v = _gqa_expand(v_cache, hq)
     scores = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) / math.sqrt(d)
     scores = torch.where(valid_mask[:, None, :], scores, NEG_INF)
+    if stats:
+        m = scores.amax(dim=-1, keepdim=True)
+        p = torch.exp(scores - m)
+        l = p.sum(dim=-1)
+        return torch.einsum("bhs,bshd->bhd", p, v.float()) / l[..., None], m[..., 0], l
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", probs, v.float())
     return out.to(q.dtype)

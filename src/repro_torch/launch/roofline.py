@@ -214,11 +214,13 @@ def flash_bwd_work(b, sq, skv, hq, hkv, d, itemsize, pairs) -> Work:
     return Work(10.0 * n * d, float(n), float(nbytes), _dtype(itemsize))
 
 
-def decode_work(b, s, hq, hkv, d, itemsize, n_valid) -> Work:
+def decode_work(b, s, hq, hkv, d, itemsize, n_valid, *, stats=False) -> Work:
     """Decode attention over ``n_valid`` valid cache rows (summed over the
     batch): 4·D FLOPs and one exponential a row and q head; bytes: q, the
-    output, the mask and the valid rows of both caches."""
-    nbytes = 2 * b * hq * d * itemsize + b * s + 2 * n_valid * hkv * d * itemsize
+    output, the mask and the valid rows of both caches; with ``stats`` the
+    output in fp32 and each row's (m, l)."""
+    out = b * hq * (4 * d + 8) if stats else b * hq * d * itemsize
+    nbytes = b * hq * d * itemsize + out + b * s + 2 * n_valid * hkv * d * itemsize
     return Work(4.0 * n_valid * hq * d, float(n_valid * hq), float(nbytes), _dtype(itemsize))
 
 

@@ -19,18 +19,19 @@ Layout summary:
 :func:`local_shape` gives a leaf's per-device shape under a spec, padded as
 GSPMD pads an uneven split (granite's vocab of 49155 over 16 ranks).
 
-:func:`distribute_params`, :func:`distribute_opt_state` and
-:func:`distribute_batch` apply the specs on a ``DeviceMesh``, the port's
+:func:`distribute_params`, :func:`distribute_opt_state`,
+:func:`distribute_batch`, :func:`distribute_caches` and
+:func:`distribute_token` apply the specs on a ``DeviceMesh``, the port's
 ``jax.device_put(tree, shardings)``: each leaf becomes a DTensor with the
 placements of its spec (``sharding.placements``), its shards taken from
-rank 0's copy.
+rank 0's copy (a cache leaf that is a DTensor already is redistributed).
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, Mapping, Tuple
 
-from repro_torch.sharding import Spec, _axsize, axis_sizes, placements
+from repro_torch.sharding import Spec, _axsize, axis_sizes, is_dtensor, placements
 
 
 def _names(rules, names) -> Spec:
@@ -223,3 +224,23 @@ def distribute_batch(batch: Mapping[str, Any], rules, mesh) -> Dict[str, Any]:
     :func:`batch_shardings`."""
     sh = batch_shardings(batch, rules, mesh)
     return {k: _distribute(x, sh[k], mesh) for k, x in batch.items()}
+
+
+def distribute_caches(caches, rules, mesh):
+    """The decode caches on ``mesh``, each leaf placed by :func:`cache_pspec`
+    (the reference's ``caches_shardings`` as ``in_shardings``): a plain leaf
+    is distributed, a DTensor leaf (a sharded prefill's) redistributed."""
+    def place(path, x):
+        spec = _check_axes(cache_pspec(path, x.dim(), rules), mesh)
+        if not is_dtensor(x):
+            return _distribute(x, spec, mesh)
+        want = placements(spec, mesh)
+        return x if list(x.placements) == want else x.redistribute(mesh, want)
+
+    return _tree_map_with_path(place, caches)
+
+
+def distribute_token(token, rules, mesh):
+    """Decode's (B,) token on ``mesh``, split as the caches' batch
+    (``P(cache_batch)``, the reference's dry run)."""
+    return _distribute(token, _check_axes((rules.get("cache_batch"),), mesh), mesh)

@@ -8,6 +8,11 @@ Cache layout per attention layer:
 Keys are stored *post-RoPE* so decode never re-rotates the cache.
 Cross-attention (the encoder-decoder's) attends a fixed, all-valid
 (B, S_enc, H_kv, head_dim) key / value pair computed once at prefill.
+
+Under the decode rules a cache is a DTensor split over its batch and its
+rows (``cache_seq``): the new key and value are written on the rank that
+holds slot ``pos`` (``_write_sharded``), and ``ops.decode_attention`` runs
+each rank's rows and merges their softmaxes.
 """
 from __future__ import annotations
 
@@ -112,6 +117,38 @@ def _position(pos, device) -> torch.Tensor:
     return torch.full((1,), int(pos), dtype=torch.int64, device=device)
 
 
+def _write_slot(cache, new, slot, first: int = 0):
+    """``cache`` (B, S, Hkv, hd) with row ``slot`` (a (1,) tensor) replaced
+    by ``new`` (B, 1, Hkv, hd); the rows are ``first .. first + S - 1`` of
+    the whole cache.  The masked write of the reference: a slot past the
+    cache (pos >= max_seq without a ring) matches nothing, so the new key
+    and value are dropped exactly as in JAX, never written out of bounds."""
+    idx = torch.arange(first, first + cache.shape[1], device=cache.device)
+    hot = (idx == slot)[None, :, None, None]
+    return torch.where(hot, new.to(cache.dtype), cache)
+
+
+def _write_sharded(cache, new, slot):
+    """:func:`_write_slot` on a DTensor cache through ``local_map``: each
+    rank writes its own rows (offset by ``sharding.shard_offset``), so only
+    the rank that holds ``slot`` changes, and the cache keeps its
+    placements."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    if not sharding.is_dtensor(cache):
+        raise ValueError("a plain KV cache beside DTensor activations: place the caches "
+                         "with launch.specs.distribute_caches")
+    mesh = cache.device_mesh
+    cp = list(cache.placements)
+    newp = [p if p.is_shard(0) else Replicate() for p in cp]
+    first = sharding.shard_offset(mesh, cp, 1, cache.shape[1])
+    fn = local_map(lambda c, n, s: _write_slot(c, n, s, first), out_placements=cp,
+                   in_placements=(cp, newp, [Replicate()] * mesh.ndim), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(cache, new, sharding.replicate_like(slot, cache))
+
+
 def decode_attention(p: Attention, x, cache, pos, cfg, *, window=None,
                      cross_kv=None, use_rope=True, impl=None):
     """One-token decode.  x: (B, d); pos: scalar int (current position).
@@ -135,19 +172,20 @@ def decode_attention(p: Attention, x, cache, pos, cfg, *, window=None,
     posv = _position(pos, x.device)
     q, k, v = _proj_qkv(p, x[:, None, :], x[:, None, :], h, hkv, hd)
     if use_rope:
-        cos, sin = layers.rope_cos_sin(posv, hd, cfg.rope_theta)
+        cos, sin = (sharding.replicate_like(t, q)
+                    for t in layers.rope_cos_sin(posv, hd, cfg.rope_theta))
         q = layers.apply_rope(q, cos[None], sin[None])
         k = layers.apply_rope(k, cos[None], sin[None])
+    # the whole cache's rows (a DTensor's shape is its global one): a ring's
+    # slot is taken modulo its own length, not the rules' sequence length
     s_cache = cache["k"].shape[1]
     ring = window is not None and s_cache <= window
     slot = (posv % s_cache) if ring else posv
-    # The masked write of the reference: a slot past the cache (pos >=
-    # max_seq without a ring) matches nothing, so the new key and value are
-    # dropped exactly as in JAX, never written out of bounds.
+    if sharding.is_dtensor(x):
+        k_cache, v_cache = (_write_sharded(cache[n], t, slot) for n, t in (("k", k), ("v", v)))
+    else:
+        k_cache, v_cache = (_write_slot(cache[n], t, slot) for n, t in (("k", k), ("v", v)))
     idx = torch.arange(s_cache, device=x.device)
-    hot = (idx == slot)[None, :, None, None]
-    k_cache = torch.where(hot, k.to(cache["k"].dtype), cache["k"])
-    v_cache = torch.where(hot, v.to(cache["v"].dtype), cache["v"])
     valid = idx <= posv                     # full cache AND ring
     if window is not None and not ring:
         valid &= idx > (posv - window)      # full-size cache, windowed attention

@@ -186,16 +186,20 @@ def _learned_position(table, pos, device):
     reads row min(pos, max_len - 1) and gives NaN where pos >= max_len, which
     is ``jnp.take``'s fill for an index past the table.  Nothing is indexed
     out of bounds and nothing waits on the device, whether ``pos`` is an int
-    or a device scalar."""
+    or a device scalar.  A DTensor table gives a replicated row."""
     posv = attention._position(pos, device)
     max_len = table.shape[0]
-    row = table[posv.clamp(0, max_len - 1)]
-    return torch.where((posv < max_len)[:, None], row, float("nan"))
+    row = embed_lookup(table, posv.clamp(0, max_len - 1))
+    past = sharding.replicate_like((posv >= max_len)[:, None], row)
+    return torch.where(past, torch.full_like(row, float("nan")), row)
 
 
 def encdec_decode_step(p: EncDec, cfg, caches, token, pos):
-    """token: (B,) int; pos: scalar int.  Returns (logits (B, V), caches)."""
-    x = p.embed[token].to(layers.dt(cfg.dtype))
+    """token: (B,) int; pos: scalar int.  Returns (logits (B, V), caches).
+    Under the decode rules the self caches' rows are split (``cache_seq``),
+    the cross caches' whole."""
+    x = sharding.logical(embed_lookup(p.embed, token).to(layers.dt(cfg.dtype)),
+                         ("batch", "embed"))
     x = x + _learned_position(p.pos, pos, x.device).to(x.dtype)
     self_kv = []
     for lp, skv, xkv in zip(p.dec_blocks, caches["self"], caches["cross"]):

@@ -211,8 +211,11 @@ def _format_caches(cfg, raw_caches, *, seq_len: int, max_seq: int, window):
 
 
 def lm_decode_step(p: LM, cfg, caches, token, pos, *, window=None):
-    """token: (B,) int; pos: scalar int.  Returns (logits (B, V), caches)."""
-    x = _embed_tokens(p, cfg, token)
+    """token: (B,) int; pos: scalar int.  Returns (logits (B, V), caches).
+    Under the decode rules the token is split as the caches' batch
+    (``launch.specs.distribute_token``); the embedding's vocab partial sums
+    are reduced once here, as the prefill's constraint reduces them."""
+    x = sharding.logical(_embed_tokens(p, cfg, token), ("batch", "embed"))
     x, caches = transformer.stack_decode(p.blocks, x, cfg, pos=pos,
                                          window=window, caches=caches)
     x = layers.norm_apply(p.norm_f, x, cfg.norm)

@@ -131,14 +131,44 @@ def init_mamba_state(cfg, batch: int, *, device):
     }
 
 
+def _conv_step(conv, xs, conv_w, conv_b):
+    """silu of one step of the causal conv: the window is the conv state
+    (B, d_conv-1, d_in) and the new input xs (B, d_in).  Returns it and the
+    new state (the window's last d_conv - 1 inputs)."""
+    window = torch.cat([conv, xs[:, None, :]], dim=1)         # (B, d_conv, d_in)
+    y = torch.einsum("bcd,cd->bd", window, conv_w.to(window.dtype))
+    return F.silu(y + conv_b[None]), window[:, 1:, :]
+
+
+def _conv_step_sharded(conv, xs, conv_w, conv_b):
+    """:func:`_conv_step` on DTensors through ``local_map``: each rank takes
+    its batch rows and channels (``ssm_inner``) of the window; the new state
+    comes back in xs's split, for the caller to place."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rep = Replicate()
+    by_split = {0: (Shard(0), Shard(0), rep, rep),             # xs, conv, conv_w, conv_b
+                1: (Shard(1), Shard(2), Shard(1), Shard(0))}
+    cols = [by_split.get(next((d for d in (0, 1) if p.is_shard(d)), None), (rep,) * 4)
+            for p in xs.placements]
+    xp, cp, wp, bp = ([c[i] for c in cols] for i in range(4))
+    fn = local_map(_conv_step, out_placements=(xp, cp), in_placements=(cp, xp, wp, bp),
+                   device_mesh=xs.device_mesh, redistribute_inputs=True)
+    return fn(conv, xs, conv_w, conv_b)
+
+
 def mamba_step(p: Mamba, x, state, cfg):
-    """One decode step.  x: (B, d) -> (y (B, d), new state)."""
+    """One decode step.  x: (B, d) -> (y (B, d), new state).  On DTensors the
+    new state leaves in the layout of the state it replaces."""
     xs, z = torch.chunk(x @ p.in_proj, 2, dim=-1)             # (B, d_in)
-    window = torch.cat([state["conv"], xs[:, None, :]], dim=1)  # (B, d_conv, d_in)
-    conv = torch.einsum("bcd,cd->bd", window, p.conv_w.to(window.dtype))
-    xs1 = F.silu(conv + p.conv_b[None])
+    if sharding.is_dtensor(xs):
+        xs = sharding.logical(xs, ("batch", "ssm_inner"))
+        xs1, conv = _conv_step_sharded(state["conv"], xs, p.conv_w, p.conv_b)
+    else:
+        xs1, conv = _conv_step(state["conv"], xs, p.conv_w, p.conv_b)
     dt, bm, cm = _split_xproj(p, xs1, cfg)
     A = -torch.exp(p.A_log)
     y, h = ops.ssm_step(xs1, dt, A, bm, cm, p.D, state["h"])
     out = (y * F.silu(z)) @ p.out_proj
-    return out, {"conv": window[:, 1:, :], "h": h}
+    return out, {"conv": sharding.like(conv, state["conv"]), "h": sharding.like(h, state["h"])}

@@ -139,7 +139,8 @@ def mlstm_forward(p: MLSTM, x, cfg, *, state=None):
 
 
 def mlstm_step(p: MLSTM, x, state, cfg):
-    """One decode step.  x: (B, d) -> (y (B, d), new state)."""
+    """One decode step.  x: (B, d) -> (y (B, d), new state).  On DTensors the
+    new state leaves in the layout of the state it replaces."""
     d_in, h, dh = _dims(cfg)
     xs, z = torch.chunk(x @ p.up, 2, dim=-1)
     q, k, v = _mlstm_qkv(p, xs, h, dh)
@@ -148,8 +149,8 @@ def mlstm_step(p: MLSTM, x, state, cfg):
     carry, h_t = _mlstm_step(carry, q.float(), k.float(), v.float(), log_i, log_f)
     h_t = h_t.reshape(x.shape[0], d_in).to(x.dtype)
     y = (h_t + xs * p.skip[None]) * F.silu(z)
-    C, n, m = carry
-    return y @ p.down, {"C": C, "n": n, "m": m}
+    new = dict(zip(("C", "n", "m"), carry))
+    return y @ p.down, {k: sharding.like(t, state[k]) for k, t in new.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -240,12 +241,13 @@ def slstm_forward(p: SLSTM, x, cfg, *, state=None):
 
 
 def slstm_step(p: SLSTM, x, state, cfg):
-    """One decode step.  x: (B, d) -> (y (B, d), new state)."""
+    """One decode step.  x: (B, d) -> (y (B, d), new state).  On DTensors the
+    new state leaves in the layout of the state it replaces."""
     _, h, dh = _dims(cfg)
     b = x.shape[0]
     xs, z = torch.chunk(x @ p.up, 2, dim=-1)
     carry = (state["c"], state["n"], state["m"])
     carry, h_t = _slstm_step(p, carry, xs.float(), state["h"].reshape(b, h, dh))
     y = h_t.to(x.dtype) * F.silu(z)
-    c, n, m = carry
-    return y @ p.down, {"c": c, "n": n, "m": m, "h": h_t}
+    new = dict(zip(("c", "n", "m", "h"), (*carry, h_t)))
+    return y @ p.down, {k: sharding.like(t, state[k]) for k, t in new.items()}

@@ -179,6 +179,15 @@ def pointwise(fn, x):
                      device_mesh=x.device_mesh, redistribute_inputs=True)(x)
 
 
+def like(t, ref):
+    """``t`` in DTensor ``ref``'s placements where both are DTensors (a
+    decode state leaves a step in its cache's layout, ``specs.cache_pspec``);
+    else ``t``."""
+    if not (is_dtensor(t) and is_dtensor(ref)) or list(t.placements) == list(ref.placements):
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
+
+
 def replicate_like(t, ref):
     """``t``, a tensor every rank computes alike (positions, masks, rope
     tables, zeros), as a replicated DTensor on ``ref``'s mesh where ``ref``

@@ -40,19 +40,23 @@ FLOOR_FRAC = 1e-2
 
 
 def case(name, arch, kind, *, seq=32, batch=4, reduce=None, expect=None,
-         tokens="pipeline", reference=True):
+         tokens="pipeline", reference=True, prompt=14, steps=4):
     """One case of a world.  ``kind``: ``loss`` (loss and gradients), ``step``
-    (one in-place train step) or ``prefill``; ``tokens``: the pipeline's
-    first batch, ``ones`` (tokens and labels 1, the reference test's) or
-    ``random``; ``expect``: rules the case must have on the mesh."""
+    (one in-place train step), ``prefill`` or ``decode`` (an unsharded
+    prefill of ``prompt`` tokens, then ``steps`` decode steps under the
+    decode rules at ``max_seq`` = ``seq``, fed fixed seeded tokens);
+    ``tokens``: the pipeline's first batch, ``ones`` (tokens and labels 1,
+    the reference test's) or ``random``; ``expect``: rules the case must
+    have on the mesh."""
     return {"name": name, "arch": arch, "kind": kind, "seq": seq, "batch": batch,
             "reduce": reduce or {}, "expect": expect or {}, "tokens": tokens,
-            "reference": reference and kind != "step"}
+            "reference": reference and kind != "step", "prompt": prompt, "steps": steps}
 
 
 def _batch(c):
     cfg = tconfig.reduced(tconfig.get_config(c["arch"]), **c["reduce"])
-    shape = tconfig.InputShape("t", c["seq"], c["batch"], "train")
+    seq = c["prompt"] if c["kind"] == "decode" else c["seq"]
+    shape = tconfig.InputShape("t", seq, c["batch"], "train")
     b = dict(next(tpipeline.batches(cfg, shape, seed=0)))
     if c["tokens"] == "ones":
         b["tokens"] = np.ones_like(b["tokens"])
@@ -61,8 +65,11 @@ def _batch(c):
         rng = np.random.default_rng(11)
         b["tokens"] = rng.integers(0, cfg.vocab_size, b["tokens"].shape).astype(np.int32)
         b["labels"] = rng.integers(0, cfg.vocab_size, b["labels"].shape).astype(np.int32)
-    if c["kind"] == "prefill":
+    if c["kind"] in ("prefill", "decode"):
         b.pop("labels")
+    if c["kind"] == "decode":    # the tokens decode is fed, a row a step
+        rng = np.random.default_rng(5)
+        b["decode"] = rng.integers(0, cfg.vocab_size, (c["steps"], c["batch"])).astype(np.int32)
     return b
 
 
@@ -97,19 +104,34 @@ for c in json.loads(inputs["cases"].item()):
         continue
     name = c["name"]
     cfg = reduced(get_config(c["arch"]), **c["reduce"])
-    kind = "prefill" if c["kind"] == "prefill" else "train"
+    kind = c["kind"] if c["kind"] in ("prefill", "decode") else "train"
     rules = sharding.make_rules(cfg, InputShape("t", c["seq"], c["batch"], kind), mesh)
     bundle = registry.build(cfg, max_seq=c["seq"])
     params = bundle.init(jax.random.key(0))
     for k, v in params_from_jax(jax.tree.map(np.asarray, params)).items():
         assert np.array_equal(v.numpy(), inputs[f"{name}/p/{k}"]), k   # the same weights
-    shapes = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), params)
-    params = jax.tree.map(jax.device_put, params, S.params_shardings(shapes, rules, mesh))
     batch = {k[len(name) + 3:]: jnp.asarray(inputs[k]) for k in inputs.files
              if k.startswith(name + "/b/")}
+    fed = batch.pop("decode", None)
     res = {}
+    if kind == "decode":
+        # the prefill unsharded; decode_step jitted under the decode rules on
+        # placed parameters, caches and token (the dry run's in_shardings)
+        _, caches, pos = jax.jit(bundle.prefill)(params, batch)
+        shapes = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), caches)
+        caches = jax.tree.map(jax.device_put, caches, S.caches_shardings(shapes, rules, mesh))
+        token_sh = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(
+            rules.get("cache_batch")))
+    shapes = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), params)
+    params = jax.tree.map(jax.device_put, params, S.params_shardings(shapes, rules, mesh))
     with sharding.use_rules(rules, mesh), mesh:
-        if kind == "prefill":
+        if kind == "decode":
+            step = jax.jit(bundle.decode_step)
+            for i, t in enumerate(fed):
+                res[f"logits.{i}"], caches = step(params, caches,
+                                                  jax.device_put(jnp.asarray(t), token_sh),
+                                                  jnp.int32(int(pos) + i))
+        elif kind == "prefill":
             res["logits"] = jax.jit(bundle.prefill)(params, batch)[0]
         else:
             (loss, _), grads = jax.jit(jax.value_and_grad(bundle.loss, has_aux=True))(
@@ -197,7 +219,7 @@ def check_reference(world, c, tol=TOL, skip=()):
     against the JAX package's sharded run (but the keys in ``skip``)."""
     ranks, refs = world
     got, ref = results(ranks[0], "sharded", c["name"]), refs[c["name"]]
-    keys = [k for k in ref if k not in skip and (k in ("loss", "logits")
+    keys = [k for k in ref if k not in skip and (k == "loss" or k.split(".")[0] == "logits"
                                                  or k.startswith("grads."))]
     assert keys and sorted(k for k in got if k.startswith("grads.")) == \
         sorted(k for k in keys if k.startswith("grads."))
@@ -242,6 +264,36 @@ def check_local(world, c, mesh):
             assert np.prod(shape) * world_size == np.prod(whole) and shape[-1] <= whole[-1], \
                 f"rank {r}: {kernel} took {shape}, of {whole} over {world_size} ranks"
         assert bool(res[f"refused/{name}"]) == (mesh[0] > 1)
+
+
+def check_decode_local(world, c, mesh):
+    """Decode's local shards on every rank: the parameters' bytes are
+    ``specs.local_shape``'s; every call of the decode kernel's plain version
+    took this rank's cache rows (a data-th of the batch where ``cache_batch``
+    splits it; a model-th of a self cache's rows where ``cache_seq`` splits
+    them, the cross cache's whole), with the statistics exactly where the
+    rows are split, and one combine for each such call; every cache leaf
+    kept ``caches_shardings``' placements (the worker raises if not); a
+    plain tensor the decode rules would split is refused."""
+    ranks, _ = world
+    name = c["name"]
+    cfg = tconfig.reduced(tconfig.get_config(c["arch"]), **c["reduce"])
+    rules = json.loads(ranks[0][f"rules/{name}"].item())
+    b = c["batch"] // (mesh[0] if rules["cache_batch"] else 1)
+    split = mesh[1] if rules["cache_seq"] else 1
+    rows = min(cfg.sliding_window or c["seq"], c["seq"])
+    want = [((b, rows // split, cfg.num_kv_heads, cfg.head_dim), split > 1)]
+    if cfg.encoder is not None:
+        want.append(((b, cfg.encoder.num_frames, cfg.num_kv_heads, cfg.head_dim), False))
+    calls_a_step = cfg.layer_pattern.count("A")
+    for r, res in enumerate(ranks):
+        have, spec_bytes = res[f"bytes/{name}"]
+        assert have == spec_bytes, f"rank {r}: {have} parameter bytes, specs say {spec_bytes}"
+        calls = [(tuple(s), stats) for s, stats in json.loads(res[f"decode/{name}"].item())]
+        assert len(calls) == c["steps"] * calls_a_step * len(want), f"rank {r}: {calls}"
+        assert set(calls) == (set(want) if calls_a_step else set()), f"rank {r}: {calls}"
+        assert int(res[f"combine/{name}"]) == sum(stats for _, stats in calls)
+        assert bool(res[f"refused/{name}"])
 
 
 def check_moe_path(world, c, path):

@@ -290,6 +290,11 @@ def test_kernel_work_counts_each_input_and_output_once(dtype):
     got = kd.decode_attention_hopper(q[:, 0].contiguous(), k, v, mask)
     assert roofline.decode_work(b, skv, hq, hkv, d, it, n_valid).bytes == \
         _nbytes(q[:, 0], got, mask) + 2 * n_valid * hkv * d * it
+    out, m, l = kd.decode_attention_hopper(q[:, 0].contiguous(), k, v, mask, stats=True)
+    w = roofline.decode_work(b, skv, hq, hkv, d, it, n_valid, stats=True)
+    assert (w.bytes, w.flops, w.exps) == (
+        _nbytes(q[:, 0], out, m, l, mask) + 2 * n_valid * hkv * d * it,
+        4.0 * n_valid * hq * d, n_valid * hq)
     bt, t, din, n = 2, 70, 8, 4
     u, B, C = (torch.randn(shape, generator=g).to(dtype)
                for shape in ((bt, t, din), (bt, t, n), (bt, t, n)))

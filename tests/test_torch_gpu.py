@@ -198,6 +198,34 @@ def test_decode_kernel_edge_cases_on_card(cuda, case, dtype):
     np.testing.assert_allclose(out, want.float().cpu().numpy(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("case", DECODE_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_statistics_match_plain_on_card(cuda, case, dtype):
+    """``stats=True``: the fp32 output and each row's (m, l) against the plain
+    version's, at 1e-5 (both in fp32 from the same inputs); a row with no
+    valid key has m = -1e30 and l = S exactly."""
+    b, s, hq, hkv, d, kind = case
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(DTYPES[dtype])
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=cuda).to(DTYPES[dtype])
+            for _ in range(2))
+    mask = torch.rand((b, s), generator=g, device=cuda) > 0.25
+    if kind == "chunk":
+        chunk = -(-s // tdecode.decode_splits(b, s, hkv, tdecode._sms(cuda.index or 0)))
+        mask[:, chunk:2 * chunk] = False
+    if kind == "none":
+        mask[:] = False
+    before = tdecode.launches
+    got = tdecode.decode_attention_hopper(q, k, v, mask, stats=True)
+    assert tdecode.launches == before + 1
+    want = tdecode.decode_attention_plain(q, k, v, mask, stats=True)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    none = ~mask.any(dim=1)
+    assert (got[1][none] == -1e30).all() and (got[2][none] == s).all()
+
+
 MODEL_DECODE_CASES = [
     # (s, hq, hkv, d, valid rows): the encoder-decoder and vision shapes
     (1500, 20, 20, 64, 1500),   # whisper cross cache: all valid, 1500 = 46 x 32 + 28
