@@ -193,11 +193,34 @@ Phases, each fatal on failure:
                the plain version's (1e-5; m = -1e30, l = the rows exactly on a
                masked slice); the statistics instantiation timed beside the
                serving one (graph replay and launch by launch).
+ 32-35. qwen2.5-14b, starcoder2-15b, qwen3-moe-30b-a3b, arctic-480b (ARCHS),
+               one resident at a time, weights from seed 0 on the card: in
+               fp32 (qwen3-moe cut to 24 layers, arctic to 1), a 120-token
+               prefill and 4 decode steps through the hand kernels against
+               the plain path at B 1 and at B 8 (eight prompts in one call),
+               logits within 1e-3, the init's peak within 1% of the weights,
+               an MoE's smallest router gap printed; in bf16 at max_seq 512
+               (arctic cut to 2 layers), a warm-up, 3 requests at B 1 and one
+               at B 8 with exact launches (a prefill's layers, a step's
+               layers each step), tokens in range, finite logits, one traced
+               request: qwen2.5-14b through the InferenceEngine (cold start,
+               snapshot restore serving the first request's tokens, the
+               restore's and the cold start's totals printed, not gated;
+               host memory and the temporary directory's room printed before
+               its snapshot), the others through its request loop
+               (engine.generate);
+ 36. moe     — one full-width qwen3-moe MoE layer in fp32 (128 experts top-8)
+               on 512 tokens, card against CPU on the same weights: each
+               token routed apart shown with its k-th / (k+1)-th probability
+               gap (below 1e-6), the outputs where the routing agrees within
+               1e-5 of the largest, both aux losses.
 The kernel phase also holds the flash kernel to its plain version at the
 forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it, and
 both attention kernels at whisper's (encoder 1500 x 1500 non-causal, cross
 448 x 1500, decoder 448; decode against the 1500-row cross cache and the
-448-row self cache) and internvl2's (G 7) shapes, bf16 timed.
+448-row self cache) and internvl2's (G 7) shapes, bf16 timed; and at the
+four served architectures' shapes (qwen2.5 G 5, starcoder2 G 12, qwen3-moe
+G 8, arctic G 7, all D 128) at B 1 and 8, their prefill and decode timed.
 The granite engine phase also restores from the snapshot file alone (a store
 with no pinned host copy, as a new process has) beside the pinned restore,
 and holds the pinned restore under the cold start (C2).
@@ -320,10 +343,13 @@ def _nbytes(*tensors) -> int:
 # kernels line); the one-period Jamba's is timed too; danube's (D 120) and
 # starcoder2's (G * D = 12 x 128) are the shapes the first kernels refused;
 # whisper-large-v3's (20/20, D 64) and internvl2-1b's (14/2: G 7) are the
-# encoder-decoder and vision paths'
+# encoder-decoder and vision paths'; qwen2.5-14b's (G 5), qwen3-moe's (G 8,
+# Hq * D = 4096 on d_model 2048) and arctic's (G 7) are served since the
+# four-architecture phases, all at D 128
 ATTN_SHAPES = {"granite": (32, 8, 64), "jamba": (32, 8, 128),
                "danube": (32, 8, 120), "starcoder2": (48, 4, 128),
-               "whisper": (20, 20, 64), "internvl2": (14, 2, 64), "forecaster": (4, 4, 8)}
+               "whisper": (20, 20, 64), "internvl2": (14, 2, 64), "forecaster": (4, 4, 8),
+               "qwen2.5": (40, 8, 128), "qwen3-moe": (32, 4, 128), "arctic": (56, 8, 128)}
 FLASH_CASES = [  # (shape, name, Sq, Skv, window, causal)
     ("granite", "prefill", 512, 512, None, True), ("granite", "window128", 512, 512, 128, True),
     ("granite", "ragged", 24, 24, None, True), ("granite", "ragged_suffix", 24, 88, 16, True),
@@ -345,13 +371,30 @@ DECODE_CASES = [  # (shape, name, S, mask: None = all valid, else (pos, window))
     # cache past max_seq (all valid); internvl2's G 7
     ("whisper", "cross", 1500, None), ("whisper", "self", 448, None),
     ("internvl2", "decode", 512, None), ("internvl2", "ragged", 512, (300, None))]
+# the served architectures' shapes at the serves' batches (B 1 and SERVE_B):
+# (shape, name, B, Sq, Skv, window, causal) and (shape, name, B, S, mask); a
+# ragged mask at B > 1 ends 37 rows earlier on each next row
+SERVED_SHAPES = ("qwen2.5", "starcoder2", "qwen3-moe", "arctic")
+SERVE_B = 8
+SERVED_FLASH_CASES = [c for shape in SERVED_SHAPES for c in (
+    (shape, "prefill_b8", SERVE_B, 512, 512, None, True),
+    *(((shape, "prefill", 1, 512, 512, None, True),
+       (shape, "ragged_suffix", 1, 40, 130, 50, True)) if shape != "starcoder2" else ()))]
+SERVED_DECODE_CASES = [c for shape in SERVED_SHAPES for c in (
+    (shape, "decode_b8", SERVE_B, 512, None), (shape, "ragged_b8", SERVE_B, 512, (400, None)),
+    *(((shape, "decode", 1, 512, None), (shape, "ragged", 1, 77, (60, None)))
+      if shape != "starcoder2" else ()))]
 # the bf16 cases timed: every main path's shape
 TIMED = {("flash_attention", "granite", "prefill"), ("flash_attention", "jamba", "prefill"),
          ("flash_attention", "whisper", "encoder"), ("flash_attention", "whisper", "cross"),
          ("flash_attention", "whisper", "decoder"), ("flash_attention", "internvl2", "prefill"),
          ("decode_attention", "granite", "decode"), ("decode_attention", "jamba", "decode"),
          ("decode_attention", "whisper", "cross"), ("decode_attention", "whisper", "self"),
-         ("decode_attention", "internvl2", "decode")}
+         ("decode_attention", "internvl2", "decode"),
+         *((kernel, shape, name) for shape in SERVED_SHAPES
+           for kernel, names in (("flash_attention", ("prefill", "prefill_b8")),
+                                 ("decode_attention", ("decode", "decode_b8")))
+           for name in names)}
 
 
 def _sass_counts(name: str, ops=("HGMMA", "UTMALDG"), kernel=None):
@@ -399,13 +442,15 @@ def kernel_phase(torch, dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     timed = {}
+    flash_cases = [(shape, name, 1, *rest) for shape, name, *rest in FLASH_CASES]
+    decode_cases = [(shape, name, 1, *rest) for shape, name, *rest in DECODE_CASES]
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        for shape, name, sq, skv, window, causal in FLASH_CASES:
+        for shape, name, b, sq, skv, window, causal in flash_cases + SERVED_FLASH_CASES:
             hq, hkv, d = ATTN_SHAPES[shape]
-            q = torch.randn((1, sq, hq, d), generator=gen, device=dev).to(tdt)
-            k = torch.randn((1, skv, hkv, d), generator=gen, device=dev).to(tdt)
-            v = torch.randn((1, skv, hkv, d), generator=gen, device=dev).to(tdt)
+            q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(tdt)
+            k = torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(tdt)
+            v = torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(tdt)
             # causal: suffix-aligned queries (a prefill); non-causal: the
             # positions the model passes (encoder and cross: arange)
             q_pos = torch.arange(sq, device=dev, dtype=torch.int32) + (skv - sq if causal else 0)
@@ -415,7 +460,7 @@ def kernel_phase(torch, dev):
             want = kf.flash_attention_plain(q, k, v, **args)
             torch.cuda.synchronize()
             err, ok = _close(got, want, KERNEL_TOL[dtype])
-            print(f"kernel flash_attention {dtype} {shape} {hq}/{hkv} D={d} {name} Sq={sq} "
+            print(f"kernel flash_attention {dtype} {shape} {hq}/{hkv} D={d} {name} B={b} Sq={sq} "
                   f"Skv={skv} window={window} causal={causal}: max_abs_err={err:.3e} "
                   f"tol={KERNEL_TOL[dtype]} {'ok' if ok else 'FAIL'}")
             if not ok or not torch.isfinite(got.float()).all():
@@ -424,33 +469,33 @@ def kernel_phase(torch, dev):
                 pairs = attention_mask(q_pos, kv_pos, causal=causal, window=window).sum().item()
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 timed[("flash_attention", shape, name)] = dict(
-                    max_abs_err=err, label=f"Sq {sq}, Skv {skv}, causal {causal}",
-                    bound=_bound(roofline.flash_work(1, sq, skv, hq, hkv, d,
+                    max_abs_err=err, label=f"B {b}, Sq {sq}, Skv {skv}, causal {causal}",
+                    bound=_bound(roofline.flash_work(b, sq, skv, hq, hkv, d,
                                                      q.element_size(), pairs)),
                     **_attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, **args),
                                   lambda: kf.flash_attention_plain(q, k, v, **args),
                                   lambda: F.scaled_dot_product_attention(
                                       qt, kt, vt, is_causal=causal, enable_gqa=True)))
-        for shape, name, s, mask_kind in DECODE_CASES:
+        for shape, name, b, s, mask_kind in decode_cases + SERVED_DECODE_CASES:
             hq, hkv, d = ATTN_SHAPES[shape]
-            q = torch.randn((1, hq, d), generator=gen, device=dev).to(tdt)
-            k = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(tdt)
-            v = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(tdt)
+            q = torch.randn((b, hq, d), generator=gen, device=dev).to(tdt)
+            k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(tdt)
+            v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(tdt)
             idx = torch.arange(s, device=dev)
             if mask_kind is None:     # pos >= max_seq in the engine; a cross cache
-                mask = torch.ones((1, s), dtype=torch.bool, device=dev)
+                mask = torch.ones((b, s), dtype=torch.bool, device=dev)
             else:
                 pos, window = mask_kind
-                m = idx <= pos
+                last = pos - 37 * torch.arange(b, device=dev)[:, None]
+                mask = idx <= last
                 if window is not None:
-                    m &= idx > pos - window
-                mask = m[None].contiguous()
+                    mask &= idx > last - window
             got = kd.decode_attention_hopper(q, k, v, mask)
             want = kd.decode_attention_plain(q, k, v, mask)
             torch.cuda.synchronize()
             err, ok = _close(got, want, KERNEL_TOL[dtype])
-            print(f"kernel decode_attention {dtype} {shape} {hq}/{hkv} D={d} {name} S={s} "
-                  f"splits={kd.decode_splits(1, s, hkv, kd._sms(0))}: max_abs_err={err:.3e} "
+            print(f"kernel decode_attention {dtype} {shape} {hq}/{hkv} D={d} {name} B={b} S={s} "
+                  f"splits={kd.decode_splits(b, s, hkv, kd._sms(0))}: max_abs_err={err:.3e} "
                   f"tol={KERNEL_TOL[dtype]} {'ok' if ok else 'FAIL'}")
             if not ok or not torch.isfinite(got.float()).all():
                 _fail(f"decode_attention {dtype} {shape} {name} disagrees with its plain version")
@@ -459,8 +504,8 @@ def kernel_phase(torch, dev):
                 qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
                 amask = mask[:, None, None, :]
                 timed[("decode_attention", shape, name)] = dict(
-                    max_abs_err=err, label=f"S {s}, {n_valid} valid",
-                    bound=_bound(roofline.decode_work(1, s, hq, hkv, d, k.element_size(),
+                    max_abs_err=err, label=f"B {b}, S {s}, {n_valid} valid",
+                    bound=_bound(roofline.decode_work(b, s, hq, hkv, d, k.element_size(),
                                                       n_valid)),
                     **_attn_times(torch, lambda: kd.decode_attention_hopper(q, k, v, mask),
                                   lambda: kd.decode_attention_plain(q, k, v, mask),
@@ -472,11 +517,13 @@ def kernel_phase(torch, dev):
               f"device (graph replay): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"sdpa {t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
               f"kernel launch by launch (host included) {t['launch_ms']:.4f} ms")
-    for shape, s in (("granite", MAX_SEQ), ("whisper", 1500), ("internvl2", MAX_SEQ)):
+    for shape, b, s in (("granite", 1, MAX_SEQ), ("whisper", 1, 1500), ("internvl2", 1, MAX_SEQ),
+                        *((shape, b, MAX_SEQ) for shape in SERVED_SHAPES for b in (1, SERVE_B))):
         hq, hkv, d = ATTN_SHAPES[shape]
-        splits = kd.decode_splits(1, s, hkv, kd._sms(0))
-        print(f"decode_attention splits at {shape}'s decode (B 1, S {s}, {hkv} kv heads): "
-              f"{splits} -> {splits * hkv} blocks on {kd._sms(0)} SMs")
+        splits = kd.decode_splits(b, s, hkv, kd._sms(0))
+        print(f"decode_attention splits at {shape}'s decode (B {b}, S {s}, {hkv} kv heads, G "
+              f"{hq // hkv}, D {d}): {splits} -> {splits * b * hkv} blocks on {kd._sms(0)} SMs, "
+              f"{kd.split_smem_bytes(hq // hkv, d)} B shared a block")
     return timed
 
 
@@ -553,40 +600,58 @@ def ssm_kernel_phase(torch, dev):
 
 
 def model_phase(torch, dev, cfg, label, *, max_seq=MAX_SEQ, prompt=MODEL_PROMPT,
-                extras=None):
+                extras=None, batches=(1,)):
     """Prefill of a ``prompt``-token prompt + 4 decode steps through the hand
-    kernels and through the plain oracles on one set of fp32 weights.
-    ``extras(gen)`` gives the prefill's other inputs (frames, image embeds)."""
+    kernels and through the plain oracles on one set of fp32 weights, at
+    each batch of ``batches`` (B different prompts in one call).
+    ``extras(gen)`` gives the prefill's other inputs (frames, image embeds).
+    Returns the weights' bytes and the peak allocated during their init."""
     from repro_torch.models import registry
 
+    t0 = time.perf_counter()
     kernel = registry.build(cfg, max_seq=max_seq, device=dev)
     plain = registry.build(dataclasses.replace(cfg, attention_impl="oracle"),
                            max_seq=max_seq, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     model = kernel.init(gen)
+    torch.cuda.synchronize()
+    init = dict(weights=sum(t.numel() * t.element_size() for t in model.state_dict().values()),
+                peak=torch.cuda.max_memory_allocated() - before)
     print(f"model {label}: {sum(t.numel() for t in model.state_dict().values()) / 1e9:.3f} B "
-          f"parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen, device=dev)
-    batch = {"tokens": tokens, **(extras(gen) if extras else {})}
-    with torch.inference_mode():
-        lk, ck, pos = kernel.prefill(model, batch)
-        lp, cp, _ = plain.prefill(model, batch)
-        steps = [("prefill", lk, lp)]
-        for i in range(4):
-            tok = lk.argmax(-1)
-            lk, ck = kernel.decode_step(model, ck, tok, pos + i)
-            lp, cp = plain.decode_step(model, cp, tok, pos + i)
-            steps.append((f"decode{i}", lk, lp))
-        for name, a, b in steps:
-            if a.shape != (1, cfg.vocab_size) or not torch.isfinite(a).all():
-                _fail(f"model {label} {name} logits: shape {tuple(a.shape)} or not finite")
-            err, ok = _close(a, b, MODEL_TOL)
-            print(f"model {label} {name}: max |logit err| {err:.3e} (logit scale "
-                  f"{b.abs().max().item():.3f}) tol={MODEL_TOL} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                _fail(f"full-width {label} {name}: kernel path disagrees with plain path")
-    del model, ck, cp
+          f"parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; init "
+          f"{time.perf_counter() - t0:.2f} s, its peak {init['peak'] / 1e9:.2f} GB for "
+          f"{init['weights'] / 1e9:.2f} GB of weights")
+    for b in batches:
+        at_b = f" B {b}" if batches != (1,) else ""
+        tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen, device=dev)
+        batch = {"tokens": tokens, **(extras(gen) if extras else {})}
+        with torch.inference_mode():
+            lk, ck, pos = kernel.prefill(model, batch)
+            lp, cp, _ = plain.prefill(model, batch)
+            steps = [("prefill", lk, lp)]
+            for i in range(4):
+                tok = lk.argmax(-1)
+                lk, ck = kernel.decode_step(model, ck, tok, pos + i)
+                lp, cp = plain.decode_step(model, cp, tok, pos + i)
+                steps.append((f"decode{i}", lk, lp))
+            for name, a, want in steps:
+                if a.shape != (b, cfg.vocab_size) or not torch.isfinite(a).all():
+                    _fail(f"model {label}{at_b} {name} logits: shape {tuple(a.shape)} or not "
+                          f"finite")
+                err, ok = _close(a, want, MODEL_TOL)
+                print(f"model {label}{at_b} {name}: max |logit err| {err:.3e} (logit scale "
+                      f"{want.abs().max().item():.3f}) tol={MODEL_TOL} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    _fail(f"full-width {label}{at_b} {name}: kernel path disagrees with plain "
+                          f"path")
+        del ck, cp
+    print(f"model {label}: {time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    del model
     _free(torch)
+    return init
 
 
 def _free(torch):
@@ -602,14 +667,17 @@ def _free(torch):
 
 
 def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=None,
-                 zero_tail=False, designs=True):
+                 zero_tail=False, designs=True, batched=False, restore_gate=True):
     """The bf16 full-width InferenceEngine: cold start, REQUESTS requests,
     scale to zero, snapshot restore, 1 request (the first's tokens), with
     exact launch counts; ``launches`` is (flash a prefill, decode a decode
     step), one attention layer's each by default.  ``extras(rng)`` draws a
     request's other inputs; ``zero_tail``: every token after the first is 0
-    (whisper's decode past its position table).  Then the restore designs
-    (granite) or the restore gate, and one traced request."""
+    (whisper's decode past its position table).  With ``batched``, one
+    SERVE_B-row request through the engine's loop on its bundle and weights
+    (counted apart, under ``"b8"``).  Then the restore designs (granite) or
+    the restore gate (without ``restore_gate``, the comparison printed only),
+    and one traced request."""
     import numpy as np
     from repro_torch.config import get_config
     from repro_torch.core.lifecycle import Phase
@@ -682,6 +750,12 @@ def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=Non
               f"({per_prefill}/prefill), decode_attention {total[1]} ({per_step}/decode step)")
         if total != want:
             _fail(f"{arch} engine run launches {total} != {want}")
+        b8 = None
+        if batched:
+            wide = rng.integers(0, vocab, (SERVE_B, max_seq))
+            b8 = serve_request(torch, eng.bundle, eng.params, wide, f"engine {arch} B {SERVE_B}",
+                               (0, per_prefill, per_step * DECODE_STEPS))
+            check_logits(torch, eng.bundle, eng.params, wide, f"{arch} B {SERVE_B}")
         if designs:
             restore_designs(eng, bd, bd2, prompts[0], outs[0])
         else:
@@ -690,10 +764,17 @@ def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=Non
             source = "pinned host copy" if eng.key in eng.store.host else "file"
             print(f"engine {arch} restore from the {source}: deps_load {dl * 1e3:.2f} ms for "
                   f"{size / 1e9:.3f} GB = {size / 1e9 / dl:.2f} GB/s")
-            _gate_restore(f"{arch} full width", bd, bd2)
-        profile_serve(torch, lambda: _wall(serve(1)[1]))
+            if restore_gate:
+                _gate_restore(f"{arch} full width", bd, bd2)
+            else:
+                print(f"C2 {arch} full width, measured, not gated: restore total "
+                      f"{bd2.total * 1e3:.2f} ms vs cold start total {bd.total * 1e3:.2f} ms "
+                      f"(deps_load {bd.seconds.get(Phase.DEPS_LOAD, 0.0) * 1e3:.2f} ms drawing "
+                      f"the weights on the card, code_init "
+                      f"{bd.seconds.get(Phase.CODE_INIT, 0.0) * 1e3:.2f} ms)")
+        profile = profile_serve(torch, lambda: _wall(serve(1)[1]))
     return {"flash_attention": total[0], "decode_attention": total[1],
-            "prefill_s": min(prefills)}
+            "prefill_s": min(prefills), "b8": b8, "profile": profile}
 
 
 def _gate_restore(label, cold, restore):
@@ -757,11 +838,12 @@ def profile_serve(torch, serve):
     busy = sum(v[0] for v in by_name.values())
     if busy == 0:
         print("profile: no device time recorded (not measured)")
-        return
+        return None
     print(f"profile one serve: wall {wall_us / 1e3:.2f} ms (unprofiled), device "
           f"kernel time {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"profile   {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+    return dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3, idle=1 - busy / wall_us)
 
 
 # --------------------------------------------------------------------------- #
@@ -769,15 +851,14 @@ def profile_serve(torch, serve):
 # --------------------------------------------------------------------------- #
 
 
-def hybrid_model_phase(torch, dev):
-    """Phase 4 on the one-period Jamba in fp32, with the smallest gap between
-    the k-th and (k+1)-th router probability met on either path: a gap near
-    the paths' ~1e-6 difference could route them apart without a kernel fault."""
-    from repro_torch.config import get_config
+@contextlib.contextmanager
+def router_gaps(torch, cfg, label):
+    """Track the smallest gap between the k-th and (k+1)-th router
+    probability that any MoE dispatch meets inside the block, and print it:
+    a gap near two paths' ~1e-6 difference could route them apart without a
+    kernel fault."""
     from repro_torch.models import moe
 
-    cfg = dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_LAYERS,
-                              dtype="float32", param_dtype="float32")
     dispatch, gap = moe._dispatch_group, [float("inf")]
 
     def tracked(x, p, c):
@@ -788,66 +869,32 @@ def hybrid_model_phase(torch, dev):
 
     moe._dispatch_group = tracked
     try:
-        model_phase(torch, dev, cfg, f"{HYBRID} x{HYBRID_LAYERS} layers fp32")
+        yield
     finally:
         moe._dispatch_group = dispatch
-    print(f"model {HYBRID} fp32: smallest top-{cfg.moe.top_k} / top-{cfg.moe.top_k + 1} "
-          f"router probability gap met {gap[0]:.3e}")
+        print(f"model {label} fp32: smallest top-{cfg.moe.top_k} / top-{cfg.moe.top_k + 1} "
+              f"router probability gap met {gap[0]:.3e}")
+
+
+def hybrid_model_phase(torch, dev):
+    """Phase 4 on the one-period Jamba in fp32, with the smallest router gap
+    met on either path."""
+    from repro_torch.config import get_config
+
+    cfg = dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    with router_gaps(torch, cfg, HYBRID):
+        model_phase(torch, dev, cfg, f"{HYBRID} x{HYBRID_LAYERS} layers fp32")
 
 
 def hybrid_serve_phase(torch, dev):
-    """The one-period Jamba in bf16 through registry.build's entry points,
-    served by the engine's request loop (``engine.generate``): a warm-up (as
-    the engine's code_init), then 3 requests with exact launch counts (the
-    main path), then one traced request."""
-    import numpy as np
+    """The one-period Jamba in bf16 through ``arch_serve_phase`` at B 1 only:
+    the scan's launches over its requests."""
     from repro_torch.config import get_config
-    from repro_torch.kernels import decode_attention as kd
-    from repro_torch.kernels import flash_attention as kf
-    from repro_torch.kernels import ssm_scan as ks
-    from repro_torch.models import registry
-    from repro_torch.serving.engine import generate
 
     cfg = dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_LAYERS)
-    n_ssm = cfg.layer_pattern.count("M")
-    n_attn = cfg.layer_pattern.count("A")
-    bundle = registry.build(cfg, max_seq=MAX_SEQ, device=dev)
-    t0 = time.perf_counter()
-    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    weights = sum(t.numel() * t.element_size() for t in model.state_dict().values())
-    print(f"hybrid {HYBRID} x{HYBRID_LAYERS} layers bf16: weights {weights / 1e9:.3f} GB, "
-          f"init from seed 0 on the card {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, (1, MAX_SEQ)) for _ in range(REQUESTS)]
-    generate(bundle, model, prompts[0], decode_steps=1)         # warm-up
-
-    def counts():
-        return ks.launches, kf.launches, kd.launches
-
-    per_request = (n_ssm, n_attn, n_attn * DECODE_STEPS)
-    ks.launches = kf.launches = kd.launches = 0                 # the main path starts here
-    for i, p in enumerate(prompts):
-        c = counts()
-        out, st = generate(bundle, model, p, decode_steps=DECODE_STEPS)
-        got = tuple(a - b for a, b in zip(counts(), c))
-        print(f"hybrid serve {i}: prefill {st.prefill_s * 1e3:.2f} ms, decode "
-              f"{st.decode_s * 1e3:.2f} ms for {st.tokens} tokens "
-              f"({st.decode_s / st.tokens * 1e3:.3f} ms/token), "
-              f"tokens {out[0].tolist()}; launches ssm_scan, flash_attention, "
-              f"decode_attention {got} (expected {per_request})")
-        if got != per_request:
-            _fail(f"hybrid serve {i} launch counts {got} != {per_request}")
-        if out.shape != (1, DECODE_STEPS) or not ((out >= 0) & (out < cfg.vocab_size)).all():
-            _fail(f"hybrid serve {i} tokens out of range: {out}")
-    total = counts()                                            # read just after the main path
-    if min(total) == 0:
-        _fail(f"a kernel of the hybrid path was never launched: {total}")
-    profile_serve(torch, lambda: _wall(generate(bundle, model, prompts[1],
-                                                decode_steps=DECODE_STEPS)[1]))
-    del model
-    _free(torch)
-    return total[0]
+    launches, _ = arch_serve_phase(torch, dev, cfg, f"{HYBRID} x{HYBRID_LAYERS}", wide=False)
+    return launches[1][0]
 
 
 def hybrid_engine_phase(torch):
@@ -3212,6 +3259,236 @@ def gspmd_decode_phase(torch, dev):
     return launches, split_launches, out
 
 
+# --------------------------------------------------------------------------- #
+# phases 32-36: the four architectures that had not run on the card
+# --------------------------------------------------------------------------- #
+
+
+# (arch, its ATTN_SHAPES key, layers of the fp32 check, layers of the bf16
+# serve; None: all): only depth is cut, where the weights would not fit one
+# card (fp32 qwen3-moe: 122 GB for 48 layers; arctic: ~27 GB a bf16 layer of
+# 35), to the most whole layers that fit (arctic bf16: the fewest with a cache
+# across layers).  qwen2.5-14b is served through the InferenceEngine, the
+# others through its request loop (engine.generate) on registry.build.  C2
+# (restore < cold start) is printed there, not gated: the restore copies
+# 29.5 GB over the host link (627 ms at 47 GB/s on an H100 80GB HBM3 at
+# 700 W), while the cold start draws the weights from the seed on the card
+# (258 ms) and warms up (227 ms): the restore loses, 627 against 484 ms
+ARCHS = [("qwen2.5-14b", "qwen2.5", None, None), ("starcoder2-15b", "starcoder2", None, None),
+         ("qwen3-moe-30b-a3b", "qwen3-moe", 24, None), ("arctic-480b", "arctic", 1, 2)]
+ENGINE_ARCH = "qwen2.5-14b"
+MODEL_BATCHES = (1, SERVE_B)   # the fp32 checks: one prompt, and 8 in one call
+# fp32 init draws each leaf in its own dtype on the card: no staging copy
+INIT_TOL = 0.01
+# one full-width qwen3-moe MoE layer in fp32, card against CPU: a token's
+# top-k set may differ only where its k-th and (k+1)-th probabilities lie
+# within MOE_GAP; elsewhere the outputs agree within MOE_TOL of the largest
+MOE_ARCH, MOE_TOKENS, MOE_GAP, MOE_TOL = "qwen3-moe-30b-a3b", 512, 1e-6, 1e-5
+
+
+def _host_room():
+    """MemAvailable and the free bytes of the temporary directory (where a
+    snapshot store writes), as one line."""
+    import shutil
+
+    avail = next((int(line.split()[1]) * 1024 for line in Path("/proc/meminfo").read_text()
+                  .splitlines() if line.startswith("MemAvailable:")), -1)
+    tmp = tempfile.gettempdir()
+    return (f"host MemAvailable {avail / 1e9:.1f} GB; {tmp} free "
+            f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB")
+
+
+def _counts():
+    """The serving kernels' launch counters: scan, flash, decode."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssm_scan as ks
+
+    return ks.launches, kf.launches, kd.launches
+
+
+def serve_request(torch, bundle, model, prompt, label, want):
+    """One request (the B rows of ``prompt``) through the engine's loop with
+    exact launches ``want`` = (scan, flash, decode) and tokens in range;
+    prints prefill ms and ms a token.  Returns the launches and the stats."""
+    from repro_torch.serving.engine import generate
+
+    c = _counts()
+    out, st = generate(bundle, model, prompt, decode_steps=DECODE_STEPS)
+    got = tuple(a - b for a, b in zip(_counts(), c))
+    b = prompt.shape[0]
+    rows = (f", {st.decode_s / st.tokens / b * 1e3:.3f} ms a row's token" if b > 1 else "",
+            f", {len(set(map(tuple, out.tolist())))} distinct rows" if b > 1 else "")
+    print(f"{label}: prefill {st.prefill_s * 1e3:.2f} ms, decode {st.decode_s * 1e3:.2f} ms "
+          f"for {st.tokens} steps ({st.decode_s / st.tokens * 1e3:.3f} ms/token{rows[0]}), "
+          f"tokens of row 0 {out[0].tolist()}{rows[1]}; launches ssm_scan, flash_attention, "
+          f"decode_attention {got} (expected {want})")
+    if got != want:
+        _fail(f"{label} launch counts {got} != {want}")
+    if out.shape != (b, DECODE_STEPS) or not ((out >= 0) & (out < bundle.cfg.vocab_size)).all():
+        _fail(f"{label} tokens out of range: {out}")
+    return got, st
+
+
+def check_logits(torch, bundle, model, prompt, label):
+    """A prefill and one decode step on ``prompt``: (B, vocab) logits, finite
+    (outside any counted run)."""
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompt, dtype=torch.int64, device=bundle.device)
+        logits, caches, pos = bundle.prefill(model, {"tokens": tokens})
+        steps = [logits]
+        steps.append(bundle.decode_step(model, caches, logits.argmax(-1), pos)[0])
+    for name, lg in zip(("prefill", "decode"), steps):
+        if lg.shape != (prompt.shape[0], bundle.cfg.vocab_size) or not torch.isfinite(lg).all():
+            _fail(f"{label} {name} logits: shape {tuple(lg.shape)} or not finite")
+    print(f"{label}: prefill and decode logits {tuple(steps[0].shape)} finite")
+
+
+def arch_serve_phase(torch, dev, cfg, label, *, wide=True):
+    """``cfg`` in bf16 from seed-0 weights made on the card
+    (registry.build + bundle.init), served by the engine's request loop
+    (``engine.generate``): a warm-up (as the engine's code_init), then
+    REQUESTS requests at B 1 and, with ``wide``, one at SERVE_B with exact
+    launches (the main path) and finite logits; one traced request.  Returns
+    the launches {B: (scan, flash, decode)} and the traced request's numbers."""
+    import numpy as np
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import generate
+
+    n_attn = cfg.layer_pattern.count("A")
+    want = (cfg.layer_pattern.count("M"), n_attn, n_attn * DECODE_STEPS)
+    bundle = registry.build(cfg, max_seq=MAX_SEQ, device=dev)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    print(f"serve {label} bf16: weights {weights / 1e9:.3f} GB, init from seed 0 on the card "
+          f"{time.perf_counter() - t0:.2f} s, its peak {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB (each leaf drawn in fp32, then cast)")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, MAX_SEQ)) for _ in range(REQUESTS)]
+    wides = [rng.integers(0, cfg.vocab_size, (SERVE_B, MAX_SEQ))] if wide else []
+    for p in prompts[:1] + wides:                               # warm-up
+        generate(bundle, model, p, decode_steps=1)
+    ks.launches = kf.launches = kd.launches = 0                 # the main path starts here
+    launches = {1: (0, 0, 0)}
+    for i, p in enumerate(prompts):
+        got, _ = serve_request(torch, bundle, model, p, f"serve {label} {i}", want)
+        launches[1] = tuple(a + b for a, b in zip(launches[1], got))
+    for p in wides:
+        launches[SERVE_B], _ = serve_request(torch, bundle, model, p,
+                                             f"serve {label} B {SERVE_B}", want)
+    total = _counts()                                           # read just after the main path
+    if min(n for n, w in zip(total, want) if w) == 0:
+        _fail(f"a kernel of the {label} path was never launched: {total}")
+    for p in wides:
+        check_logits(torch, bundle, model, p, f"serve {label} B {SERVE_B}")
+    profile = profile_serve(torch, lambda: _wall(generate(bundle, model, prompts[1],
+                                                          decode_steps=DECODE_STEPS)[1]))
+    print(f"serve {label}: {time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    del model
+    _free(torch)
+    return launches, profile
+
+
+def arch_phase(torch, dev, arch, fp32_layers, bf16_layers):
+    """One architecture of ARCHS: the fp32 check (kernel path against the
+    plain path at B 1 and SERVE_B, the router gap met for an MoE), then the
+    bf16 serve (through the InferenceEngine for ENGINE_ARCH).  Returns the
+    serve's launches {B: (scan, flash, decode)} and its traced request."""
+    from repro_torch.config import get_config
+
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=fp32_layers or full.num_layers,
+                              dtype="float32", param_dtype="float32")
+    label = f"{arch} x{cfg.num_layers} layers fp32"
+    with router_gaps(torch, cfg, arch) if cfg.moe else contextlib.nullcontext():
+        init = model_phase(torch, dev, cfg, label, batches=MODEL_BATCHES)
+    over = init["peak"] / init["weights"] - 1
+    print(f"model {label}: init peak {over:+.4f} of the weights' bytes (tol {INIT_TOL})")
+    if over > INIT_TOL:
+        _fail(f"{label}: init's peak {init['peak']} exceeds the weights' {init['weights']} bytes")
+    torch.cuda.reset_peak_memory_stats()
+    if arch == ENGINE_ARCH:
+        print(f"serve {arch}: before the engine's snapshot, {_host_room()}")
+        out = engine_phase(torch, arch, designs=False, batched=True, restore_gate=False)
+        launches = {1: (0, out["flash_attention"], out["decode_attention"]),
+                    SERVE_B: out["b8"][0]}
+        profile = out["profile"]
+    else:
+        cfg = dataclasses.replace(full, num_layers=bf16_layers or full.num_layers)
+        launches, profile = arch_serve_phase(torch, dev, cfg, f"{arch} x{cfg.num_layers}")
+    peak = torch.cuda.max_memory_allocated()
+    _free(torch)
+    print(f"phase {arch}: {time.perf_counter() - t0:.1f} s; the bf16 serve's peak "
+          f"{peak / 1e9:.2f} GB allocated")
+    return launches, profile
+
+
+def moe_card_vs_cpu(torch, dev, cfg, tokens: int, seed: int = 0):
+    """One MoE layer of ``cfg`` (fp32, seed ``seed`` on ``dev``) on ``tokens``
+    random tokens through ``moe._dispatch_group`` on the card and, with the
+    same weights and tokens, on the CPU.  Returns the tokens whose top-k
+    expert sets differ, with the gap between their k-th and (k+1)-th
+    probability (the smaller of the two devices'), the smallest gap of any
+    token, the largest output difference over the tokens whose sets agree
+    relative to the largest output, and both aux losses."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    card = moe.MoE(cfg, device=dev, gen=gen)
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device=dev)
+    host = moe.MoE(cfg, device="meta")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()}, assign=True)
+    k = cfg.moe.top_k
+    sets, gaps, outs = [], [], []
+    with torch.inference_mode():
+        for xx, p in ((x, card), (x.cpu(), host)):
+            outs.append(moe._dispatch_group(xx, p, cfg))
+            probs = torch.softmax(xx.float() @ p.router, dim=-1)
+            w, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+            sets.append(i[:, :k].sort(dim=-1).values.cpu())
+            gaps.append((w[:, k - 1] - w[:, k]).cpu())
+    gap = torch.minimum(*gaps)
+    differ = (sets[0] != sets[1]).any(dim=-1)
+    (y_card, aux_card), (y_cpu, aux_cpu) = outs
+    agree = ~differ
+    err = (y_card.cpu()[agree] - y_cpu[agree]).abs().max().item() if agree.any() else 0.0
+    return dict(differ=differ.nonzero().flatten().tolist(), gaps=gap[differ].tolist(),
+                min_gap=gap.min().item(), rel_err=err / y_cpu.abs().max().item(),
+                aux=(aux_card.item(), aux_cpu.item()),
+                params=sum(t.numel() for t in card.state_dict().values()))
+
+
+def moe_layer_phase(torch, dev):
+    """One full-width qwen3-moe MoE layer in fp32 on MOE_TOKENS tokens, card
+    against CPU on the same weights: the sort, scatter, bmm and index_add_
+    of ``_dispatch_group`` on each device."""
+    from repro_torch.config import get_config
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32", param_dtype="float32")
+    r = moe_card_vs_cpu(torch, dev, cfg, MOE_TOKENS)
+    print(f"moe {MOE_ARCH} layer fp32 ({r['params'] / 1e6:.1f} M parameters, {MOE_TOKENS} "
+          f"tokens, {cfg.moe.num_experts} experts top-{cfg.moe.top_k}) card vs CPU: "
+          f"{len(r['differ'])} tokens route to other top-{cfg.moe.top_k} sets (gaps "
+          f"{['%.3e' % g for g in r['gaps']]}; smallest gap of any token {r['min_gap']:.3e}); "
+          f"outputs where the sets agree within {r['rel_err']:.3e} of the largest "
+          f"(tol {MOE_TOL}); aux loss card {r['aux'][0]:.9f}, CPU {r['aux'][1]:.9f}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(g >= MOE_GAP for g in r["gaps"]):
+        _fail(f"moe layer: a token routes apart on card and CPU at a gap >= {MOE_GAP}: {r}")
+    if r["rel_err"] > MOE_TOL:
+        _fail(f"moe layer: card and CPU outputs differ by {r['rel_err']:.3e} of the largest")
+    _free(torch)
+
+
 def main() -> int:
     import torch
 
@@ -3294,6 +3571,9 @@ def main() -> int:
                            f"{HYBRID} x{HYBRID_TRAIN_LAYERS} train": hybrid_train["step_s"]})
     gspmd_phase(torch, dev, granite_train["step_s"])
     gsd_launches, split_launches, timed_stats = gspmd_decode_phase(torch, dev)
+    served = {shape: arch_phase(torch, dev, arch, fp32_layers, bf16_layers)[0]
+              for arch, shape, fp32_layers, bf16_layers in ARCHS}
+    moe_layer_phase(torch, dev)
     # a kernel on several main paths: each path's launches (counts set to 0
     # just before it, read just after) and its numbers at that path's shape.
     # whisper's prefill runs its 32 layers' flash calls at three shapes
@@ -3301,6 +3581,12 @@ def main() -> int:
     # decode steps two (self, cross: 64 a step), so each shape takes its share
     def at(kernel, shape, name):
         return timed[(kernel, shape, name)]
+
+    # each new serve's B 1 requests and its SERVE_B request, at their shapes
+    def served_paths(kernel, i, names):
+        return [(f"{shape}-serve{'' if b == 1 else f'-b{b}'}", served[shape][b][i],
+                 at(kernel, shape, name))
+                for shape in SERVED_SHAPES for b, name in zip((1, SERVE_B), names)]
 
     paths = {"flash_attention": [
                  ("engine", launches["flash_attention"], at("flash_attention", "granite", "prefill")),
@@ -3310,7 +3596,8 @@ def main() -> int:
                    for name in ("encoder", "decoder", "cross")),
                  ("internvl2", vl["flash_attention"], at("flash_attention", "internvl2", "prefill")),
                  ("granite-train", train_launches[0], train_timed[("fwd", "granite")]),
-                 ("forecaster-train", fc_train_launches[0], train_timed[("fwd", "forecaster")])],
+                 ("forecaster-train", fc_train_launches[0], train_timed[("fwd", "forecaster")]),
+                 *served_paths("flash_attention", 1, ("prefill", "prefill_b8"))],
              "flash_attention_bwd": [
                  ("granite-train", train_launches[1], train_timed[("bwd", "granite")]),
                  ("forecaster-train", fc_train_launches[1], train_timed[("bwd", "forecaster")])],
@@ -3326,7 +3613,8 @@ def main() -> int:
                  ("gspmd-decode", gsd_launches, at("decode_attention", "granite", "decode")),
                  *((f"whisper-{name}", w["decode_attention"] // 2,
                     at("decode_attention", "whisper", name)) for name in ("self", "cross")),
-                 ("internvl2", vl["decode_attention"], at("decode_attention", "internvl2", "decode"))],
+                 ("internvl2", vl["decode_attention"], at("decode_attention", "internvl2", "decode")),
+                 *served_paths("decode_attention", 2, ("decode", "decode_b8"))],
              "cluster_step": [("sweep", launches["cluster_step"], timed["cluster_step"]),
                               ("gym", gym_launches, gym_timed)]}
     timed = {"flash_attention": at("flash_attention", "granite", "prefill"),

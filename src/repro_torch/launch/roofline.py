@@ -1,7 +1,7 @@
 """Roofline for the H100 (port of ``repro.launch.roofline``).
 
 For each (arch × shape) the three roofline terms of one device, on a mesh of
-``CHIPS = chips(mesh)`` H100s (one by default):
+``chips(mesh)`` H100s (``CHIPS``, one, by default):
 
     compute    = sum over dtypes of FLOPs / that dtype's peak, or the
                  exponentials over the special-function units, the larger
@@ -63,6 +63,9 @@ HBM_BW = 3.35e12             # B/s
 LINK_BW = 450e9              # B/s per direction, NVLink 4 (18 links x 25 GB/s)
 # exponentials: the special-function units' 16 per clock per SM, 132 SMs, 1.98 GHz boost
 PEAK_EXPS = 16 * 132 * 1.98e9
+# the default mesh's chips (:func:`one_chip`); the reference's CHIPS is its
+# 16 x 16 TPU pod, and ``analyze(cfg, shape, mesh)`` takes any other mesh
+CHIPS = 1
 
 
 def one_chip() -> MeshShape:
@@ -431,15 +434,19 @@ def analyze(cfg, shape: InputShape, mesh=None) -> Dict[str, Any]:
     }
 
 
-def analyze_pair(arch: str, shape_name: str, *, mesh=None) -> Dict[str, Any]:
+def analyze_pair(arch: str, shape_name: str, *, dryrun_mem: Optional[dict] = None,
+                 mesh=None) -> Dict[str, Any]:
     """The reference's entry: ``arch`` x ``shape_name`` on ``mesh`` (one H100
-    by default)."""
+    by default); ``dryrun_mem`` (the dry run's ``bytes_per_device``) is
+    carried into the record as ``mem_per_device``, as the reference does."""
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     if not supports_shape(cfg, shape):
         return {"arch": arch, "shape": shape_name, "status": "skipped"}
     rec = analyze(cfg, shape, mesh)
     rec["arch"] = arch
+    if dryrun_mem:
+        rec["mem_per_device"] = dryrun_mem
     return rec
 
 

@@ -102,9 +102,13 @@ def full_attention(p: Attention, x, cfg, *, q_pos, causal=True, window=None,
 
 
 def init_cache(cfg, batch: int, max_seq: int, *, window: Optional[int] = None,
-               dtype=None, device):
+               num_heads=None, num_kv_heads=None, dtype=None, device):
+    """Zero ``k`` / ``v`` of (batch, S, kv heads, head_dim), S the ring's
+    ``window`` slots or ``max_seq``.  ``num_heads`` is the reference's and
+    sizes nothing (a cache holds kv heads only)."""
+    del num_heads
     s = min(window, max_seq) if window else max_seq
-    shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, s, num_kv_heads or cfg.num_kv_heads, cfg.head_dim)
     dtype = layers.dt(dtype or cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -150,14 +154,16 @@ def _write_sharded(cache, new, slot):
 
 
 def decode_attention(p: Attention, x, cache, pos, cfg, *, window=None,
-                     cross_kv=None, use_rope=True, impl=None):
+                     cross_kv=None, use_rope=True, impl=None, num_heads=None,
+                     num_kv_heads=None):
     """One-token decode.  x: (B, d); pos: scalar int (current position).
 
     Returns (y (B, d), new_cache).  With ``cross_kv = (k, v)`` it attends
     those fixed encoder keys / values, all valid, and returns ``cache``
     unchanged.
     """
-    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    h = num_heads or cfg.num_heads
+    hkv = num_kv_heads or cfg.num_kv_heads
     hd = p.wq.shape[1] // h
     b = x.shape[0]
     impl = impl or cfg.attention_impl

@@ -127,6 +127,27 @@ def test_cold_start_from_the_seed_serves(tmp_path):
     assert out.shape == (1, 2) and ((0 <= out) & (out < 512)).all()
 
 
+def test_batch_two_greedy_tokens_equal_the_jax_engine(tmp_path):
+    """An engine warmed for B 2 serves two different prompts in one request,
+    each row's greedy tokens equal to the JAX engine's at B 2."""
+    jeng = JaxEngine(ARCH, smoke=True, max_seq=MAX_SEQ, batch=2,
+                     store=JaxStore(str(tmp_path / "jax")))
+    jeng.cold_start()
+    store = SnapshotStore(str(tmp_path / "torch"))
+    teng = InferenceEngine(ARCH, smoke=True, max_seq=MAX_SEQ, batch=2, store=store,
+                           device="cpu")
+    store.save_params(teng.key, params_from_jax(jax.tree.map(np.asarray, jeng.params)))
+    teng.cold_start(from_snapshot=True)
+    prompts = np.concatenate([_prompt(6), _prompt(7)])
+    want, _ = jeng.serve(prompts, decode_steps=STEPS)
+    got, stats = teng.serve(prompts, decode_steps=STEPS)
+    assert got.shape == (2, STEPS) and stats.tokens == STEPS
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got[0], got[1])
+    with pytest.raises(ValueError, match="tokens must be"):
+        teng.serve(_prompt(6), decode_steps=STEPS)
+
+
 # --------------------------------------------------------------------------- #
 # jamba SMOKE: the hybrid family (attention + Mamba layers, MoE FFNs)
 # --------------------------------------------------------------------------- #

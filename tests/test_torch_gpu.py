@@ -870,3 +870,70 @@ def test_ep_one_rank_nccl_matches_single_device_on_card(cuda, tmp_path):
     for name, g in grads.items():
         np.testing.assert_allclose(ep_grads[name].cpu().numpy(), g.cpu().numpy(),
                                    rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+# the head shapes (Hq, Hkv, D) the four-architecture serves run, all at D 128:
+# G 5, 8 (Hq * D = 4096 on d_model 2048) and 7, with 75-80 KB of shared memory
+# a decode block (above the 48 KB default)
+SERVED_HEADS = {"qwen2.5-14b": (40, 8, 128), "qwen3-moe-30b-a3b": (32, 4, 128),
+                "arctic-480b": (56, 8, 128)}
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("arch", sorted(SERVED_HEADS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_at_the_served_heads_on_card(cuda, arch, b, dtype):
+    """Flash (a 512-token prefill, a ragged windowed suffix) and decode (a
+    512-row cache all valid, and ragged rows) against their plain versions at
+    the served head shapes, B 1 and 8."""
+    from repro_torch.config import get_config
+
+    cfg = get_config(arch)
+    hq, hkv, d = SERVED_HEADS[arch]
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (hq, hkv, d)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dt = DTYPES[dtype]
+    for sq, skv, window in ((512, 512, None), (40, 130, 50)):
+        q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(dt)
+        k, v = (torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(dt) for _ in range(2))
+        args = dict(causal=True, window=window,
+                    q_pos=torch.arange(sq, device=cuda, dtype=torch.int32) + (skv - sq),
+                    kv_pos=torch.arange(skv, device=cuda, dtype=torch.int32))
+        before = tflash.launches
+        got = tflash.flash_attention_hopper(q, k, v, **args)
+        assert tflash.launches == before + 1
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   tflash.flash_attention_plain(q, k, v, **args).float().cpu()
+                                   .numpy(), **_tol(dtype))
+    s = 512
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=cuda).to(dt) for _ in range(2))
+    last = 400 - 37 * torch.arange(b, device=cuda)[:, None]
+    for mask in (torch.ones((b, s), dtype=torch.bool, device=cuda),
+                 torch.arange(s, device=cuda) <= last):
+        before = tdecode.launches
+        got = tdecode.decode_attention_hopper(q, k, v, mask)
+        assert tdecode.launches == before + 1
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   tdecode.decode_attention_plain(q, k, v, mask).float().cpu()
+                                   .numpy(), **_tol(dtype))
+
+
+def test_moe_layer_card_matches_cpu(cuda):
+    """A qwen3-moe MoE layer (128 experts top-8, d_model cut to 256, expert_ff
+    to 96) in fp32 on 512 tokens, card against CPU on the same weights
+    (``chip_smoke.moe_card_vs_cpu``): a token routes apart only at a gap below
+    ``MOE_GAP``, and the outputs agree within ``MOE_TOL`` of the largest where
+    the routing agrees."""
+    import dataclasses
+
+    from repro_torch.config import get_config
+
+    cs = _chip_smoke()
+    full = get_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(full, d_model=256, dtype="float32", param_dtype="float32",
+                              moe=dataclasses.replace(full.moe, expert_ff=96))
+    r = cs.moe_card_vs_cpu(torch, cuda, cfg, 512)
+    assert all(gap < cs.MOE_GAP for gap in r["gaps"]), r
+    assert r["rel_err"] <= cs.MOE_TOL, r
+    np.testing.assert_allclose(*r["aux"], rtol=1e-5)

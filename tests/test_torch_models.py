@@ -39,6 +39,7 @@ CASES = [
     ("granite3_2b", 16, 32, "pallas"),
     ("h2o_danube3_4b", 96, 128, "reference"),   # window 64: the ring roll runs
     ("qwen25_14b", 16, 32, "reference"),        # QKV bias, rope_theta 1e6
+    ("starcoder2_15b", 16, 32, "reference"),    # LayerNorm, GELU, rope_theta 1e5
     ("jamba_v01_52b", 16, 32, "reference"),     # Mamba + attention, MoE every 2nd
     ("jamba_v01_52b", 16, 32, "pallas"),        # the Pallas scan, interpreted
     ("qwen3_moe_30b_a3b", 16, 32, "reference"),  # MoE on every layer, no dense FFN
@@ -52,12 +53,15 @@ def _configs(arch):
     return jmod, tmod
 
 
-def _models(arch, max_seq, impl):
+def _models(arch, max_seq, impl, **changes):
+    """The JAX bundle and its weights, and the port's bundle with those
+    weights; ``changes`` replace fields of both SMOKE configs."""
     jmod, tmod = _configs(arch)
-    jcfg = dataclasses.replace(jmod.SMOKE, attention_impl=impl)
+    jcfg = dataclasses.replace(jmod.SMOKE, attention_impl=impl, **changes)
     jb = jregistry.build(jcfg, max_seq=max_seq)
     jparams = jb.init(jax.random.key(0))
-    tb = tregistry.build(tmod.SMOKE, max_seq=max_seq, device="cpu")
+    tb = tregistry.build(dataclasses.replace(tmod.SMOKE, **changes), max_seq=max_seq,
+                         device="cpu")
     model = tb.empty()
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams)),
                           assign=True)
@@ -66,8 +70,29 @@ def _models(arch, max_seq, impl):
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[3]}")
 def test_prefill_and_decode_logits_match_jax(case):
-    arch, prompt, max_seq, impl = case
-    jb, jparams, tb, model = _models(arch, max_seq, impl)
+    _prefill_and_decode_match(*case)
+
+
+def test_qwen3_moe_with_query_width_past_d_model_matches_jax():
+    """qwen3-moe's real heads are 32 x 128 = 4096 query features on a 2048
+    model width; SMOKE's head_dim is d_model / heads.  Twice that here makes
+    wq (256, 512) and wo (512, 256): every reshape by d_model would break."""
+    cfg = _configs("qwen3_moe_30b_a3b")[1].SMOKE
+    hd = 2 * cfg.d_model // cfg.num_heads
+    model = _prefill_and_decode_match("qwen3_moe_30b_a3b", 16, 32, "reference", head_dim=hd)
+    attn = model.blocks[0].attn
+    assert attn.wq.shape == (cfg.d_model, cfg.num_heads * hd) == attn.wo.shape[::-1]
+    assert cfg.num_heads * hd != cfg.d_model
+
+
+def _prefill_and_decode_match(arch, prompt, max_seq, impl, **changes):
+    """Prefill and 4 decode steps of the port against the JAX package at B 2,
+    logits and caches; the carried weights' names and shapes are the port's
+    own.  Returns the port's model."""
+    jb, jparams, tb, model = _models(arch, max_seq, impl, **changes)
+    fresh = tb.empty().state_dict()
+    assert {k: (v.shape, v.dtype) for k, v in model.state_dict().items()} == \
+        {k: (v.shape, v.dtype) for k, v in fresh.items()}
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, tb.cfg.vocab_size, (B, prompt)).astype(np.int32)
     steps = rng.integers(0, tb.cfg.vocab_size, (4, B)).astype(np.int32)
@@ -94,9 +119,12 @@ def test_prefill_and_decode_logits_match_jax(case):
         for key, t in c.items():
             np.testing.assert_allclose(t.numpy(), np.asarray(want[key][layer // per]),
                                        err_msg=f"{arch} layer {layer} {key}", **TOL)
+    return model
 
 
-@pytest.mark.parametrize("arch", ["granite3_2b", "h2o_danube3_4b", "jamba_v01_52b"])
+@pytest.mark.parametrize("arch", ["granite3_2b", "h2o_danube3_4b", "jamba_v01_52b",
+                                  "qwen25_14b", "starcoder2_15b", "qwen3_moe_30b_a3b",
+                                  "arctic_480b"])
 def test_full_forward_logits_match_jax(arch):
     jb, jparams, tb, model = _models(arch, 128, "reference")
     tokens = np.random.default_rng(1).integers(0, tb.cfg.vocab_size, (B, 80)).astype(np.int32)
@@ -199,3 +227,37 @@ def test_decode_cache_layout_matches_jax(arch, max_seq):
             want = np.asarray(jc[layer % per][key][layer // per])
             assert t.shape == want.shape and not t.any()
             assert str(t.dtype).split(".")[1] == str(want.dtype), (layer, key)
+
+
+def test_attention_head_keywords_match_jax():
+    """``init_cache`` and ``decode_attention`` take the reference's
+    ``num_heads`` / ``num_kv_heads``, which override the config's counts
+    (granite SMOKE has 4 / 1 heads; 8 / 2 here)."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+
+    jcfg, tcfg = (m.SMOKE for m in _configs("granite3_2b"))
+    h, hkv, hd = 8, 2, tcfg.head_dim
+    jc = jattn.init_cache(jcfg, 1, 16, num_kv_heads=2)
+    tc = tattn.init_cache(tcfg, 1, 16, num_kv_heads=2, device="cpu")
+    for key in ("k", "v"):
+        assert tuple(tc[key].shape) == jc[key].shape == (1, 16, 2, hd)
+        assert str(tc[key].dtype).split(".")[1] == str(jc[key].dtype) and not tc[key].any()
+    jp = jattn.init_attention(jax.random.key(3), jcfg, num_heads=h, num_kv_heads=hkv)
+    tp = tattn.Attention(tcfg, num_heads=h, num_kv_heads=hkv, device="cpu")
+    tp.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in jp.items()},
+                       assign=True)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((B, tcfg.d_model)).astype(np.float32)
+    kv = {key: rng.standard_normal((B, 16, hkv, hd)).astype(np.float32)
+          for key in ("k", "v")}
+    pos = 9
+    jy, jcache = jattn.decode_attention(
+        jp, jnp.asarray(x), {k: jnp.asarray(v) for k, v in kv.items()},
+        jnp.asarray(pos, jnp.int32), jcfg, impl="reference", num_heads=h, num_kv_heads=hkv)
+    ty, tcache = tattn.decode_attention(
+        tp, torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in kv.items()}, pos,
+        tcfg, num_heads=h, num_kv_heads=hkv)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(), np.asarray(jcache[key]), **TOL)
