@@ -103,12 +103,15 @@ Phases, each fatal on failure:
                (csrc/flash_attention_bwd.cu, fed those statistics) against
                its plain version on the kernel phase's flash cases, granite's
                training shape (B 8, S 256), the forecaster's (B 64, S 16, 4/4,
-               D 8) and a prefill whose first 40 rows see no valid key, fp32
-               (1e-4) and bf16 (5e-2), each twice and bit-equal; the backward
-               and the forward (with and without statistics) timed at
-               granite's training shape (bf16) and the forecaster's (fp32)
-               beside the plain versions, scaled_dot_product_attention's (a
-               yardstick only) and the simple SIMT backward it replaced;
+               D 8), a prefill whose first 40 rows see no valid key and
+               train_4k's (B 8, S 4096; plain one batch row a call; in bf16
+               also ROW_TOL, which must refuse the backward with its last key
+               tile dropped), fp32 (1e-4) and bf16 (5e-2), each twice and
+               bit-equal; the backward and the forward (with and without
+               statistics) timed at granite's training shapes (bf16) and the
+               forecaster's (fp32) beside the plain versions,
+               scaled_dot_product_attention's (a yardstick only) and the
+               simple SIMT backward it replaced;
  19. ssm-bwd — the scan's backward kernel (csrc/ssm_scan_bwd.cu, two
                launches: the reverse scan, the sums of its partials): every
                instantiation's registers and spills, the bf16 L 4 kernel's
@@ -214,6 +217,36 @@ Phases, each fatal on failure:
                token routed apart shown with its k-th / (k+1)-th probability
                gap (below 1e-6), the outputs where the routing agrees within
                1e-5 of the largest, both aux losses.
+ 37. long-kernels — the config's own long shapes (config.SHAPES), kernel
+               against plain version, fp32 and bf16: flash at Skv 32768 (B 1)
+               and 32752 (B 8) and with the 4096 window over 8192 keys
+               (danube's D 120, Jamba's D 128), the plain version over q-row
+               slices (flash_attention_plain_rows; B 8 in bf16 only); decode
+               at 32768 rows (B 8, B 1) and on the wrapped 4096-slot ring;
+               the scan at T 8192; bf16 attention also row by row (ROW_TOL),
+               a gate that must refuse the kernel with its last key tile
+               dropped; the bf16 calls timed with bounds and SDPA, flash's
+               prologue by the same call with window 1;
+ 38. prefill_32k — full-width granite-3-2b, bf16, B 1 x 32768 through
+               registry.build(cfg, SHAPES["prefill_32k"]): two prefills, 40
+               flash launches each, the roofline's bound beside the time; then
+               in fp32 at 4 layers the last logits of a prefill of S tokens
+               against a prefill of S - 16 and 16 decode steps (1e-3);
+ 39. decode_32k — granite bf16, 8 prompts of 32752 tokens at max_seq 32768,
+               16 decode steps (40 decode launches each) through
+               engine.generate, ms a token, peak, the decode steps' idle share
+               from a traced second run; the fp32 check at B 8 x 32768 (4
+               layers);
+ 40. train_4k — granite bf16 weights, fp32 AdamW, remat, S 4096 at the
+               largest B of 8, 4, 2, 1 that fits (each failure printed), 5
+               steps through launch/train.py, exact launches, one traced step,
+               the roofline's bound (its flash kernels are held and timed
+               at (8, 4096) in phase 18);
+ 41. long_500k — h2o-danube-3-4b (full) and one Jamba period, built with
+               SHAPES["long_500k"] (4096-slot rings): an 8192-token prompt and
+               16 decode steps, exact launches, ms a token, peak, idle share;
+               the fp32 check at S 8192 (Jamba's MoE capacity raised so that
+               no token drops; its smallest router gap printed).
 The kernel phase also holds the flash kernel to its plain version at the
 forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it, and
 both attention kernels at whisper's (encoder 1500 x 1500 non-causal, cross
@@ -245,6 +278,13 @@ MAX_SEQ, DECODE_STEPS, REQUESTS = 512, 16, 3
 MODEL_PROMPT = 120          # model phase: ragged against 64-row tiles, decode writes land
 # kernel vs plain version: tests/test_kernels.py's tolerances
 KERNEL_TOL = {"float32": 3e-5, "bfloat16": 5e-2}
+# ... and in bf16 at the long shapes, each output row's error relative to its
+# own norm (``_row_err``): a row averaging n keys of unit-scale values has
+# entries near n^-1/2 (~0.006 at 32768), far under the bf16 gate's absolute
+# 5e-2, so a kernel that skipped a key tile would pass that gate alone (fp32's
+# 3e-5 refuses it).  1e-2 is about 2.5 of bf16's 2^-8 relative spacing: the
+# output's rounding and the kernels' bf16 P in the PV product, ~2^-9 each
+ROW_TOL = 1e-2
 # model phase: fp32 logits of unit scale; the two paths run the same matmuls
 # and differ only in the attention's summation order, 40 layers deep
 MODEL_TOL = 1e-3
@@ -273,6 +313,45 @@ def _close(got, want, tol):
     return err.max().item(), bool((err <= tol + tol * want.float().abs()).all())
 
 
+def _row_err(got, want) -> float:
+    """The largest ||got - want|| over rows (the last dim), each relative to
+    its row's norm or to a hundredth of the rows' root-mean-square norm,
+    whichever is larger: a row whose exact value is zero (the first q row's
+    dq: one key, so no gradient through its softmax) has no scale of its own."""
+    g, w = got.float(), want.float()
+    norm = w.norm(dim=-1)
+    floor = 1e-2 * norm.square().mean().sqrt()
+    return ((g - w).norm(dim=-1) / norm.maximum(floor)).max().item()
+
+
+def _long_close(got, want, dtype, tol=KERNEL_TOL):
+    """The kernel gate (``_close`` at ``tol[dtype]``) and, in bf16, the row
+    gate (``_row_err`` within ROW_TOL): (max abs error, row error or None,
+    ok)."""
+    err, ok = _close(got, want, tol[dtype])
+    if dtype != "bfloat16":
+        return err, None, ok
+    row = _row_err(got, want)
+    return err, row, ok and row <= ROW_TOL
+
+
+def _rows(row) -> str:
+    return "" if row is None else f", row error {row:.3e} (ROW_TOL {ROW_TOL})"
+
+
+def _gate_rejects(what, dtype, bad, want, tol=KERNEL_TOL):
+    """The gates' check on a kernel's output with its last key tile dropped
+    (``bad``): the row gate must refuse it; whether KERNEL_TOL alone would
+    have is printed beside."""
+    err, ok = _close(bad, want, tol[dtype])
+    row = _row_err(bad, want)
+    print(f"gate {what} {dtype}, the kernel with its last key tile dropped: row error "
+          f"{row:.3e} (ROW_TOL {ROW_TOL}: refused {not row <= ROW_TOL}); max_abs_err "
+          f"{err:.3e} (the absolute gate alone would pass it: {ok})")
+    if row <= ROW_TOL:
+        _fail(f"{what} {dtype}: the row gate passes the kernel with its last key tile dropped")
+
+
 def _time_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -284,6 +363,18 @@ def _time_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _event_ms(torch, fn) -> float:
+    """Device ms of one ``fn()`` between CUDA events (a call too large to
+    repeat or to capture)."""
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
 
 
 def _graph_ms(torch, fn, reps: int = 20, iters: int = 10) -> float:
@@ -313,11 +404,17 @@ def _graph_ms(torch, fn, reps: int = 20, iters: int = 10) -> float:
     return start.elapsed_time(stop) / (iters * reps)
 
 
-def _attn_times(torch, kernel, plain, library):
-    """Device ms (CUDA-graph replay) of the kernel, its plain version and the
-    library call, and the kernel's ms launch by launch (host included)."""
-    return dict(ms=_graph_ms(torch, kernel), plain_ms=_graph_ms(torch, plain),
-                library_ms=_graph_ms(torch, library), launch_ms=_time_ms(torch, kernel))
+def _attn_times(torch, kernel, plain, library, *, reps=20, iters=10, plain_ms=None):
+    """Device ms (CUDA-graph replay, ``reps`` calls a graph, ``iters``
+    replays) of the kernel, its plain version and the library call, and the
+    kernel's ms launch by launch (host included).  With ``plain_ms`` (a plain
+    version too large to repeat, timed once between events) ``plain`` is not
+    run."""
+    return dict(ms=_graph_ms(torch, kernel, reps, iters),
+                plain_ms=_graph_ms(torch, plain, reps, iters) if plain_ms is None else plain_ms,
+                library_ms=_graph_ms(torch, library, reps, iters),
+                launch_ms=_time_ms(torch, kernel, iters=min(50, reps * iters),
+                                   warmup=min(3, reps)))
 
 
 def _bound(work):
@@ -328,6 +425,18 @@ def _bound(work):
 
     s, by = roofline.bound(work)
     return s * 1e3, by
+
+
+def _print_time(kernel, dtype, shape, name, t):
+    """One timed kernel call's line: device ms (graph replay), the plain
+    version's, the library call's, the bound and ms launch by launch."""
+    hq, hkv, d = ATTN_SHAPES.get(shape, (0, 0, 0))
+    heads = f", {hq}/{hkv} heads, D {d}" if hq else ""
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    print(f"time {kernel} {dtype} ({shape} {name}{heads}, {t['label']}), device (graph "
+          f"replay): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa {lib}, bound "
+          f"{t['bound'][0]:.5f} ms ({t['bound'][1]}, {t['ms'] / t['bound'][0]:.2f}x); kernel "
+          f"launch by launch (host included) {t['launch_ms']:.4f} ms")
 
 
 def _nbytes(*tensors) -> int:
@@ -512,11 +621,7 @@ def kernel_phase(torch, dev):
                                   lambda: F.scaled_dot_product_attention(
                                       qt, kt, vt, attn_mask=amask, enable_gqa=True)))
     for (kernel, shape, name), t in timed.items():
-        hq, hkv, d = ATTN_SHAPES[shape]
-        print(f"time {kernel} bf16 ({shape} {name}, {hq}/{hkv} heads, D {d}, {t['label']}), "
-              f"device (graph replay): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"sdpa {t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
-              f"kernel launch by launch (host included) {t['launch_ms']:.4f} ms")
+        _print_time(kernel, "bfloat16", shape, name, t)
     for shape, b, s in (("granite", 1, MAX_SEQ), ("whisper", 1, 1500), ("internvl2", 1, MAX_SEQ),
                         *((shape, b, MAX_SEQ) for shape in SERVED_SHAPES for b in (1, SERVE_B))):
         hq, hkv, d = ATTN_SHAPES[shape]
@@ -817,6 +922,20 @@ def _wall(stats) -> float:
     return stats.prefill_s + stats.decode_s
 
 
+def _busy_us(events) -> float:
+    """Microseconds in which the device ran at least one of ``events`` (the
+    union of their intervals): a kernel launched to wait on the one before it
+    (the decode kernel's combine) overlaps it, and summing their durations
+    would count that stretch twice."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def profile_serve(torch, serve):
     """Device busy share and kernel time by name over one warm request: the
     wall time from an unprofiled request, the kernel time from a traced one
@@ -835,12 +954,13 @@ def profile_serve(torch, serve):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name][0] += e.time_range.elapsed_us()
             by_name[e.name][1] += 1
-    busy = sum(v[0] for v in by_name.values())
+    busy = _busy_us([e for e in prof.events() if e.device_type == DeviceType.CUDA])
     if busy == 0:
         print("profile: no device time recorded (not measured)")
         return None
-    print(f"profile one serve: wall {wall_us / 1e3:.2f} ms (unprofiled), device "
-          f"kernel time {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}")
+    print(f"profile one serve: wall {wall_us / 1e3:.2f} ms (unprofiled), device busy "
+          f"{busy / 1e3:.2f} ms (kernel times summed {sum(v[0] for v in by_name.values()) / 1e3:.2f}"
+          f" ms), idle share {1 - busy / wall_us:.3f}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"profile   {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
     return dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3, idle=1 - busy / wall_us)
@@ -856,24 +976,33 @@ def router_gaps(torch, cfg, label):
     """Track the smallest gap between the k-th and (k+1)-th router
     probability that any MoE dispatch meets inside the block, and print it:
     a gap near two paths' ~1e-6 difference could route them apart without a
-    kernel fault."""
+    kernel fault.  Also track the largest expert load against its group's
+    capacity (a load past it drops tokens); yields {"gap", "load", "cap"}."""
     from repro_torch.models import moe
 
-    dispatch, gap = moe._dispatch_group, [float("inf")]
+    dispatch = moe._dispatch_group
+    seen = {"gap": float("inf"), "load": 0, "cap": 0}
 
     def tracked(x, p, c):
+        k = c.moe.top_k
         probs = torch.softmax(x.float() @ p.router, dim=-1)
-        top = probs.topk(c.moe.top_k + 1, dim=-1).values
-        gap[0] = min(gap[0], (top[:, -2] - top[:, -1]).min().item())
+        top = probs.topk(k + 1, dim=-1)
+        seen["gap"] = min(seen["gap"], (top.values[:, -2] - top.values[:, -1]).min().item())
+        load = int(torch.bincount(top.indices[:, :k].flatten(),
+                                  minlength=c.moe.num_experts).max())
+        cap = moe._capacity(x.shape[0], c.moe)
+        if load * seen["cap"] >= seen["load"] * cap:         # the fullest expert yet
+            seen["load"], seen["cap"] = load, cap
         return dispatch(x, p, c)
 
     moe._dispatch_group = tracked
     try:
-        yield
+        yield seen
     finally:
         moe._dispatch_group = dispatch
         print(f"model {label} fp32: smallest top-{cfg.moe.top_k} / top-{cfg.moe.top_k + 1} "
-              f"router probability gap met {gap[0]:.3e}")
+              f"router probability gap met {seen['gap']:.3e}; largest expert load against its "
+              f"group's capacity {seen['load']} / {seen['cap']}")
 
 
 def hybrid_model_phase(torch, dev):
@@ -1141,35 +1270,36 @@ def _profile_call(torch, wall_s, call, label, top=4, also=()):
     """Device busy share of one ``call()``: the device time from a traced call
     over the wall time of an unprofiled one (the first trace also pays the
     profiler's start-up); the device activities, the top kernels and every
-    kernel whose name holds one of ``also``, with its launches."""
+    kernel whose name holds one of ``also``, with its launches.  Returns the
+    busy share (None where no device time was recorded)."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's ops would only slow the trace's processing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
     by_name = defaultdict(float)
     count = defaultdict(int)
-    n = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us()
-            count[e.name] += 1
-            n += 1
-    busy = sum(by_name.values())
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for e in device:
+        by_name[e.name] += e.time_range.elapsed_us()
+        count[e.name] += 1
+    busy = _busy_us(device)
     if busy == 0:
         print(f"profile {label}: no device time recorded (not measured)")
         return
-    print(f"profile {label}: wall {wall_s * 1e3:.2f} ms (unprofiled), device time "
-          f"{busy / 1e3:.3f} ms, busy share {busy / (wall_s * 1e6):.5f}, {n} device "
-          f"activities")
+    print(f"profile {label}: wall {wall_s * 1e3:.2f} ms (unprofiled), device busy "
+          f"{busy / 1e3:.3f} ms (kernel times summed {sum(by_name.values()) / 1e3:.3f} ms), "
+          f"busy share {busy / (wall_s * 1e6):.5f}, {len(device)} device activities")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"profile   {us / 1e3:9.3f} ms  {name[:90]}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
         if any(part in name for part in also):
             print(f"profile   {us / 1e3:9.3f} ms  x{count[name]}  {name[:90]}")
+    return busy / (wall_s * 1e6)
 
 
 def _spot_check(torch):
@@ -2008,24 +2138,36 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # the kernel's log2 domain
 STATS_TOL = 1e-4
 # the simple SIMT backward (three launches, no tensor cores) that the
-# tensor-core kernels replaced, at the timed shapes (this script on an H100
-# 80GB HBM3 at 700.00 W), printed beside this run's
-SIMT_BWD_MS = {"granite": 0.9681, "forecaster": 0.0341}
+# tensor-core kernels replaced, at the timed training shapes (this script on
+# an H100 80GB HBM3 at 700.00 W), printed beside this run's
+SIMT_BWD_MS = {("granite", "train"): 0.9681, ("forecaster", "train"): 0.0341}
 TRAIN_STEPS = 10
 TRAIN_SHAPE = (8, 256)         # launch/train.py's default batch and seq
+DECODE_32K_B = 8              # decode_32k's global batch 128 cut to what one card holds
+TRAIN_4K_BATCHES = (8, 4, 2, 1)   # train_4k's 256 cut: the largest of these that fits
+TRAIN_4K_SEQ, TRAIN_4K_STEPS = 4096, 5
+# a plain version whose whole call's fp32 score tensor passes this runs one
+# batch row at a time (train_4k's B 8 backward would hold ~70 GB)
+PLAIN_BYTES = 4 << 30
 GRAD_TOL = dict(loss=1e-5, norm=1e-4, leaf=1e-3)
 FORECASTER_TRAIN_B = 64        # the reference trainer's batch (scripts/train_predictors.py)
 FORECASTER_TRAIN_STEPS = 10
 SMOKE_TRAIN_TOL = 1e-4
 # (shape, name, B, Sq, Skv, window, causal, key shift): the forward phase's
-# cases at B 1, granite's training shape, the forecaster's, and a prefill
-# whose keys start at position 40 (q rows 0-39 see no valid key)
+# cases at B 1, granite's training shape, the forecaster's, a prefill whose
+# keys start at position 40 (q rows 0-39 see no valid key), and train_4k at
+# its first batch (the one that fits: the train_4k phase prints each try)
 BWD_CASES = [(shape, name, 1, sq, skv, window, causal, 0)
              for shape, name, sq, skv, window, causal in FLASH_CASES] + [
     ("granite", "train", *TRAIN_SHAPE, TRAIN_SHAPE[1], None, True, 0),
     ("forecaster", "train", FORECASTER_TRAIN_B, 16, 16, None, True, 0),
-    ("granite", "no_valid_key", 1, 100, 100, None, True, 40)]
-BWD_TIMED = {("granite", "train", "bfloat16"), ("forecaster", "train", "float32")}
+    ("granite", "no_valid_key", 1, 100, 100, None, True, 40),
+    ("granite", "train_4k", TRAIN_4K_BATCHES[0], TRAIN_4K_SEQ, TRAIN_4K_SEQ, None, True, 0)]
+# the cases timed, each with its graphs' (reps, iters): the training paths'
+BWD_TIMED = {("granite", "train", "bfloat16"): (20, 10),
+             ("forecaster", "train", "float32"): (20, 10),
+             ("granite", "train_4k", "bfloat16"): (2, 3)}
+BWD_LONG = {"train_4k"}       # in bf16 also the row gate (ROW_TOL) and a dropped key tile
 # the scan's backward against its plain version: fp32 sums over channels,
 # time and states in another order (the flash backward's 1e-4); bf16 du, dB
 # and dC are one rounding of an fp32 sum
@@ -2048,13 +2190,21 @@ SMOKE_TRAIN_SHAPE = (2, 32)
 GRANITE_TRAIN_BEFORE = dict(peak_gb=61.79, step_ms=507.1)
 
 
+def _batch_rows(torch, fn, tensors, args):
+    """``fn`` one batch row at a time, its outputs joined on the batch dim:
+    a plain version whose whole call would not fit."""
+    parts = [fn(*(t[i:i + 1] for t in tensors), **args) for i in range(tensors[0].shape[0])]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def flash_bwd_phase(torch, dev):
     """On every case of BWD_CASES, fp32 and bf16: the forward's row statistics
     against its plain version's and its output with them bit-equal to its
     output without; the flash backward kernel against its plain version, two
-    calls bit-equal.  At granite's training shape (bf16) and the
-    forecaster's (fp32) the backward and the forward (the training path's,
-    with statistics, and serving's) timed by graph replay beside the plain
+    calls bit-equal (at train_4k also the row gate, which must refuse the
+    backward with its last key tile dropped).  At the training paths' shapes
+    (BWD_TIMED) the backward and the forward (the training path's, with
+    statistics, and serving's) timed by graph replay beside the plain
     versions and, as a yardstick, scaled_dot_product_attention's forward and
     backward."""
     import torch.nn.functional as F
@@ -2077,10 +2227,21 @@ def flash_bwd_phase(torch, dev):
             args = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
             serving = kf.flash_attention_hopper(q, k, v, **args)
             out, m, linv = kf.flash_attention_hopper(q, k, v, **args, stats=True)
-            _, pm, pl = kf.flash_attention_plain(q, k, v, **args, stats=True)
             got = kf.flash_attention_bwd_hopper(q, k, v, out, dout, m, linv, **args)
             again = kf.flash_attention_bwd_hopper(q, k, v, out, dout, m, linv, **args)
-            want = kf.flash_attention_bwd_plain(q, k, v, out, dout, m, linv, **args)
+            sliced = b * hq * sq * skv * 4 > PLAIN_BYTES
+            plain_ms = {}
+
+            def plain(what, fn, tensors, **extra):
+                if not sliced:
+                    return fn(*tensors, **args, **extra)
+                res = []
+                plain_ms[what] = _event_ms(torch, lambda: res.append(_batch_rows(
+                    torch, fn, tensors, dict(args, **extra))))
+                return res[0]
+
+            pout, pm, pl = plain("fwd", kf.flash_attention_plain, (q, k, v), stats=True)
+            want = plain("bwd", kf.flash_attention_bwd_plain, (q, k, v, out, dout, m, linv))
             torch.cuda.synchronize()
             stat_errs = [_close(a, w, STATS_TOL) for a, w in ((m, pm), (linv, pl))]
             same_out = torch.equal(out, serving)
@@ -2088,13 +2249,20 @@ def flash_bwd_phase(torch, dev):
             same = all(torch.equal(a, c) for a, c in zip(got, again))
             ok = all(o for _, o in errs) and same and all(torch.isfinite(g.float()).all()
                                                          for g in got)
+            rows = ""
+            if name in BWD_LONG and dtype == "bfloat16":
+                row_errs = [_row_err(g, w) for g, w in zip(got, want)]
+                ok = ok and all(r <= ROW_TOL for r in row_errs)
+                rows = (f"row error dq {row_errs[0]:.3e} dk {row_errs[1]:.3e} dv "
+                        f"{row_errs[2]:.3e} (ROW_TOL {ROW_TOL}) ")
             stats_ok = same_out and all(o for _, o in stat_errs)
             print(f"kernel flash_attention_bwd {dtype} {shape} {hq}/{hkv} D={d} {name} B={b} "
                   f"Sq={sq} Skv={skv} window={window} causal={causal} keys from {shift}: "
                   f"forward stats max rel err m {stat_errs[0][0]:.2e} linv {stat_errs[1][0]:.2e} "
                   f"(tol {STATS_TOL}), out bit-equal to serving's {same_out}; "
                   f"max_abs_err dq {errs[0][0]:.3e} dk {errs[1][0]:.3e} dv {errs[2][0]:.3e} "
-                  f"tol={BWD_TOL[dtype]} bit-equal twice {same} "
+                  f"tol={BWD_TOL[dtype]} {rows}bit-equal twice {same}"
+                  f"{' (plain one batch row a call)' if sliced else ''} "
                   f"{'ok' if ok and stats_ok else 'FAIL'}")
             if not stats_ok:
                 _fail(f"flash_attention {dtype} {shape} {name}: the row statistics disagree "
@@ -2102,22 +2270,37 @@ def flash_bwd_phase(torch, dev):
             if not ok:
                 _fail(f"flash_attention_bwd {dtype} {shape} {name} disagrees with its plain "
                       f"version or is not deterministic")
+            if name in BWD_LONG and dtype == "bfloat16":
+                # the backward over every key but the last tile's 64: dq misses
+                # their terms, and their dk / dv rows stay zero
+                bad = kf.flash_attention_bwd_hopper(
+                    q, k[:, :-64].contiguous(), v[:, :-64].contiguous(), out, dout, m, linv,
+                    **dict(args, kv_pos=kv_pos[:-64]))
+                pad = torch.zeros_like(k[:, -64:])
+                bad = (bad[0], *(torch.cat([x, pad], dim=1) for x in bad[1:]))
+                _gate_rejects(f"flash_attention_bwd {shape} {name}", dtype,
+                              torch.cat([x.flatten(0, -2) for x in bad]),
+                              torch.cat([x.flatten(0, -2) for x in want]), BWD_TOL)
+                del bad
             if (shape, name, dtype) not in BWD_TIMED:
+                del q, k, v, dout, out, m, linv, got, again, want
                 continue
+            reps, iters = BWD_TIMED[(shape, name, dtype)]
             pairs = attention_mask(q_pos, kv_pos, causal=causal, window=window).sum().item()
-            label = f"B {b}, S {sq}, {hq}/{hkv} heads, D {d}, causal {causal}"
+            label = f"B {b}, S {sq}, causal {causal}"
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             # the training path's forward: with the statistics
             f = _attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, **args, stats=True),
                             lambda: kf.flash_attention_plain(q, k, v, **args, stats=True),
                             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                                   enable_gqa=True))
-            f.update(max_abs_err=_close(out, kf.flash_attention_plain(q, k, v, **args),
-                                        KERNEL_TOL[dtype])[0], label=label,
+                                                                   enable_gqa=True),
+                            reps=reps, iters=iters, plain_ms=plain_ms.get("fwd"))
+            f.update(max_abs_err=_close(out, pout, KERNEL_TOL[dtype])[0], label=label,
                      bound=_bound(roofline.flash_work(b, sq, skv, hq, hkv, d, q.element_size(),
                                                       pairs, stats=True)))
-            timed[("fwd", shape)] = f
-            serving_ms = _graph_ms(torch, lambda: kf.flash_attention_hopper(q, k, v, **args))
+            timed[("fwd", shape, name)] = f
+            serving_ms = _graph_ms(torch, lambda: kf.flash_attention_hopper(q, k, v, **args),
+                                   reps, iters)
             # SDPA's backward runs on its forward's stream, so a graph holds
             # the two together: its backward is (forward + backward) - forward
             leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
@@ -2130,28 +2313,27 @@ def flash_bwd_phase(torch, dev):
             def kernel():
                 return kf.flash_attention_bwd_hopper(q, k, v, out, dout, m, linv, **args)
 
-            fwd_bwd = _graph_ms(torch, sdpa_fwd_bwd)
-            t = dict(ms=_graph_ms(torch, kernel),
-                     plain_ms=_graph_ms(torch, lambda: kf.flash_attention_bwd_plain(
-                         q, k, v, out, dout, m, linv, **args)),
-                     library_ms=fwd_bwd - f["library_ms"], launch_ms=_time_ms(torch, kernel))
+            fwd_bwd = _graph_ms(torch, sdpa_fwd_bwd, reps, iters)
+            t = _attn_times(torch, kernel, lambda: kf.flash_attention_bwd_plain(
+                q, k, v, out, dout, m, linv, **args), sdpa_fwd_bwd, reps=reps, iters=iters,
+                plain_ms=plain_ms.get("bwd"))
+            t["library_ms"] = fwd_bwd - f["library_ms"]
             # dq, dk, dv and the recomputed S, dP: five D-long products a pair
             t.update(max_abs_err=max(e for e, _ in errs), label=label,
                      bound=_bound(roofline.flash_bwd_work(b, sq, skv, hq, hkv, d,
                                                           q.element_size(), pairs)))
-            timed[("bwd", shape)] = t
+            timed[("bwd", shape, name)] = t
+            simt = SIMT_BWD_MS.get((shape, name))
             print(f"time sdpa forward + backward {dtype} ({shape} {name}) {fwd_bwd:.4f} ms, "
                   f"forward {f['library_ms']:.4f} ms (graph replay)")
-            print(f"time flash_attention_bwd {dtype} ({shape} {name}): {t['ms']:.4f} ms against "
-                  f"the simple SIMT kernel's {SIMT_BWD_MS[shape]:.4f} ms "
-                  f"({SIMT_BWD_MS[shape] / t['ms']:.2f}x); forward with statistics "
-                  f"{f['ms']:.4f} ms, serving's forward (none) {serving_ms:.4f} ms")
-            for what, x in (("flash_attention_bwd", t), ("flash_attention", f)):
-                print(f"time {what} {dtype} ({shape} {name}, {label}), device (graph replay): "
-                      f"kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, sdpa "
-                      f"{x['library_ms']:.4f} ms, bound {x['bound'][0]:.5f} ms "
-                      f"({x['bound'][1]}); kernel launch by launch (host included) "
-                      f"{x['launch_ms']:.4f} ms")
+            print(f"time flash_attention_bwd {dtype} ({shape} {name}): {t['ms']:.4f} ms"
+                  + ("" if simt is None else f" against the simple SIMT kernel's {simt:.4f} ms "
+                     f"({simt / t['ms']:.2f}x)") + f"; forward with statistics {f['ms']:.4f} "
+                  f"ms, serving's forward (none) {serving_ms:.4f} ms")
+            _print_time("flash_attention_bwd", dtype, shape, name, t)
+            _print_time("flash_attention", dtype, shape, name, f)
+            del q, k, v, dout, out, m, linv, got, again, want, qt, kt, vt, leaves
+        _free(torch)
     return timed
 
 
@@ -2401,8 +2583,9 @@ def train_grad_phase(torch, dev, cfg, label, shape):
     _free(torch)
 
 
-def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None):
-    """``steps`` bf16 optimizer steps of ``cfg`` at batch 8 x seq 256, made
+def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None,
+                shape=TRAIN_SHAPE):
+    """``steps`` bf16 optimizer steps of ``cfg`` at batch x seq ``shape``, made
     by ``run()`` (``launch/train.py``: its main, or its ``train`` on a bundle
     of ``cfg``), with exact launch counts (each attention and Mamba layer's
     forward 2 a step under remat, its backward kernels once), falling finite
@@ -2418,7 +2601,7 @@ def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None):
     from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_loop import make_train_step, param_tree, to_device
 
-    b, s = TRAIN_SHAPE
+    b, s = shape
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2456,12 +2639,12 @@ def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None):
     t0 = time.perf_counter()
     step(params, opt_state, batch)
     torch.cuda.synchronize()
-    _profile_call(torch, time.perf_counter() - t0, lambda: step(params, opt_state, batch),
-                  f"{label} train step", top=12,
-                  also=("flash_fwd", "bwd_dq", "bwd_dkdv", "ssm_kernel", "ssm_bwd"))
+    busy = _profile_call(torch, time.perf_counter() - t0, lambda: step(params, opt_state, batch),
+                         f"{label} train step", top=12,
+                         also=("flash_fwd", "bwd_dq", "bwd_dkdv", "ssm_kernel", "ssm_bwd"))
     del params, opt_state, batch
     _free(torch)
-    return launches, {"step_s": steady, "held": held}
+    return launches, {"step_s": steady, "held": held, "busy": busy, "peak": peak}
 
 
 def granite_train_phase(torch, dev):
@@ -3489,6 +3672,472 @@ def moe_layer_phase(torch, dev):
     _free(torch)
 
 
+# --------------------------------------------------------------------------- #
+# phases 37-41: the config's own long shapes (config.SHAPES) on one card
+# --------------------------------------------------------------------------- #
+
+RING_PROMPT = 8192            # long_500k's prompt cut to twice the 4096-slot ring
+RING_ARCH = "h2o-danube-3-4b"
+# the Jamba fp32 check's MoE capacity factor (1.25 in the config): 3x a
+# group's mean load, so that no token drops (a dropped token couples a
+# prefill's tokens, which a decode step never does); E / k (no drop by
+# construction) would size the 8176-token group's experts at 7.5 GB each
+RING_CHECK_CAPACITY = 3.0
+# granite's fp32 self-consistency checks cut to 4 of 40 layers (the fp32
+# flash kernel runs on the FMA units: ~2.9 s a B 8 layer at 32768)
+LONG_CHECK_LAYERS = 4
+# (shape, name, B, Sq, Skv, window): the flash forward at the long paths'
+# shapes; the ring's window over an 8192-token prompt, danube's D 120 and
+# Jamba's D 128
+LONG_FLASH_CASES = [
+    ("granite", "prefill_32k", 1, 32768, 32768, None),
+    ("granite", "decode_32k_prefill", DECODE_32K_B, 32768 - DECODE_STEPS, 32768 - DECODE_STEPS, None),
+    ("danube", "ring_prefill", 1, RING_PROMPT, RING_PROMPT, 4096),
+    ("jamba", "ring_prefill", 1, RING_PROMPT, RING_PROMPT, 4096)]
+# (shape, name, B, S, last valid row): the decode kernel on a 32768-row cache
+# (decode_32k's first step at B 8; the last row at B 1) and on the wrapped
+# 4096-slot ring (every row valid)
+LONG_DECODE_CASES = [
+    ("granite", "decode_32k", DECODE_32K_B, 32768, 32768 - DECODE_STEPS),
+    ("granite", "cache_32k_b1", 1, 32768, 32767),
+    ("danube", "ring", 1, 4096, 4095),
+    ("jamba", "ring", 1, 4096, 4095)]
+LONG_SCAN = (1, RING_PROMPT, 8192, 16)   # the Jamba prefill's scan at the ring's prompt
+LONG_REPS = dict(reps=2, iters=3)        # graphs of calls of milliseconds
+
+
+def long_kernel_phase(torch, dev):
+    """Phase 37: each hand kernel against its plain version at the long paths'
+    shapes, fp32 (TF32 off) and bf16 (KERNEL_TOL, SSM_TOL; the attention
+    kernels in bf16 also ROW_TOL, which must refuse the kernel with its last
+    key tile dropped): the flash forward
+    at Skv 32768 (B 1) and 32752 (B 8, bf16: the path's dtype; the fp32
+    kernel takes ~2.9 s a call there), and with the 4096 window over 8192
+    (danube, Jamba), its plain version over slices of q rows; the decode
+    kernel at 32768 rows (B 8, B 1) and on the wrapped 4096-slot ring; the
+    scan at T 8192.  The bf16 calls timed (device ms by graph replay, launch
+    by launch; the plain version once; SDPA beside attention) with their
+    bounds; the flash forward's prologue (every block reads every key
+    position before its loop) measured by the same calls with window 1."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.kernels.ref import attention_mask
+    from repro_torch.launch import roofline
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(37)
+    timed = {}
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        for shape, name, b, sq, skv, window in LONG_FLASH_CASES:
+            if b > 1 and dtype == "float32":
+                continue      # fp32 at Skv 32768 is held at B 1; the B 8 path runs bf16
+            hq, hkv, d = ATTN_SHAPES[shape]
+            q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(tdt)
+            k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(tdt)
+                    for _ in range(2))
+            q_pos = torch.arange(sq, device=dev, dtype=torch.int32) + (skv - sq)
+            kv_pos = torch.arange(skv, device=dev, dtype=torch.int32)
+            args = dict(causal=True, window=window, q_pos=q_pos, kv_pos=kv_pos)
+            t1 = time.perf_counter()
+            got = kf.flash_attention_hopper(q, k, v, **args)
+            torch.cuda.synchronize()
+            t_kernel = time.perf_counter() - t1
+            want = []
+            plain_ms = _event_ms(torch, lambda: want.append(kf.flash_attention_plain_rows(
+                q, k, v, **args)))
+            err, row, ok = _long_close(got, want[0], dtype)
+            print(f"kernel flash_attention {dtype} {shape} {hq}/{hkv} D={d} {name} B={b} Sq={sq} "
+                  f"Skv={skv} window={window} causal=True: max_abs_err={err:.3e} "
+                  f"tol={KERNEL_TOL[dtype]}{_rows(row)} (plain over q-row slices) "
+                  f"{'ok' if ok else 'FAIL'}; first call "
+                  f"{t_kernel:.3f} s")
+            if not ok or not torch.isfinite(got.float()).all():
+                _fail(f"flash_attention {dtype} {shape} {name} disagrees with its plain version")
+            del got
+            if dtype != "bfloat16":
+                del want
+                continue
+            # the kernel over every key but the last tile's 64 (the last q
+            # tile's rows lose their nearest keys)
+            bad = kf.flash_attention_hopper(q, k[:, :-64].contiguous(), v[:, :-64].contiguous(),
+                                            **dict(args, kv_pos=kv_pos[:-64]))
+            _gate_rejects(f"flash_attention {shape} {name}", dtype, bad, want[0])
+            del want, bad
+            pairs = roofline.attention_pairs(sq, skv, causal=True, window=window)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            amask = None if window is None else attention_mask(q_pos, kv_pos, causal=True,
+                                                               window=window)
+            t = dict(max_abs_err=err, label=f"B {b}, Sq {sq}, Skv {skv}, window {window}",
+                     bound=_bound(roofline.flash_work(b, sq, skv, hq, hkv, d, q.element_size(),
+                                                      pairs)),
+                     **_attn_times(torch, lambda: kf.flash_attention_hopper(q, k, v, **args),
+                                   None, lambda: F.scaled_dot_product_attention(
+                                       qt, kt, vt, attn_mask=amask, is_causal=amask is None,
+                                       enable_gqa=True), plain_ms=plain_ms, **LONG_REPS))
+            timed[("flash_attention", shape, name)] = t
+            _print_time("flash_attention", dtype, shape, name, t)
+            if b == 1:
+                # window 1: every block's loop runs one or two key tiles, so
+                # the call is the launch and the prologue's scan of Skv keys
+                few = _graph_ms(torch, lambda: kf.flash_attention_hopper(
+                    q, k, v, causal=True, window=1, q_pos=q_pos, kv_pos=kv_pos), **LONG_REPS)
+                print(f"time flash_attention prologue bf16 ({shape} {name}): the same call with "
+                      f"window 1 (one or two key tiles a block) {few:.4f} ms against "
+                      f"{t['ms']:.4f} ms: the prologue and launch at most "
+                      f"{few / t['ms']:.3f} of the call")
+            del q, k, v, qt, kt, vt
+            _free(torch)
+        for shape, name, b, s, last in LONG_DECODE_CASES:
+            hq, hkv, d = ATTN_SHAPES[shape]
+            q = torch.randn((b, hq, d), generator=gen, device=dev).to(tdt)
+            k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(tdt)
+                    for _ in range(2))
+            mask = (torch.arange(s, device=dev) <= last)[None].expand(b, s).contiguous()
+            got = kd.decode_attention_hopper(q, k, v, mask)
+            want = kd.decode_attention_plain(q, k, v, mask)
+            err, row, ok = _long_close(got, want, dtype)
+            splits = kd.decode_splits(b, s, hkv, kd._sms(0))
+            print(f"kernel decode_attention {dtype} {shape} {hq}/{hkv} D={d} {name} B={b} S={s} "
+                  f"rows 0-{last} valid, splits={splits} ({-(-s // splits)} rows a split, "
+                  f"{splits * b * hkv} blocks, {kd.split_smem_bytes(hq // hkv, d)} B shared a "
+                  f"block): max_abs_err={err:.3e} tol={KERNEL_TOL[dtype]}{_rows(row)} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok or not torch.isfinite(got.float()).all():
+                _fail(f"decode_attention {dtype} {shape} {name} disagrees with its plain version")
+            if dtype != "bfloat16":
+                continue
+            # the kernel with the last valid 32-row tile's rows masked out
+            short = mask.clone()
+            short[:, last - 31:last + 1] = False
+            _gate_rejects(f"decode_attention {shape} {name}", dtype,
+                          kd.decode_attention_hopper(q, k, v, short), want)
+            del short
+            n_valid = mask.sum().item()
+            qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+            amask = mask[:, None, None, :]
+            t = dict(max_abs_err=err, label=f"B {b}, S {s}, {n_valid} valid, {splits} splits",
+                     bound=_bound(roofline.decode_work(b, s, hq, hkv, d, k.element_size(),
+                                                       n_valid)),
+                     **_attn_times(torch, lambda: kd.decode_attention_hopper(q, k, v, mask),
+                                   lambda: kd.decode_attention_plain(q, k, v, mask),
+                                   lambda: F.scaled_dot_product_attention(
+                                       qt, kt, vt, attn_mask=amask, enable_gqa=True)))
+            timed[("decode_attention", shape, name)] = t
+            _print_time("decode_attention", dtype, shape, name, t)
+        args = _ssm_inputs(torch, gen, *LONG_SCAN, dtype)
+        got = ks.ssm_scan_hopper(*args)
+        want = ks.ssm_scan_plain(*args)
+        errs = [_close(g, w, SSM_TOL[dtype]) for g, w in zip(got, want)]
+        err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+        print(f"kernel ssm_scan {dtype} jamba ring prefill Bt,T,Din,N={LONG_SCAN}: y, hT "
+              f"max_abs_err={err:.3e} tol={SSM_TOL[dtype]} {'ok' if ok else 'FAIL'}")
+        if not ok or not all(torch.isfinite(g.float()).all() for g in got):
+            _fail(f"ssm_scan {dtype} at T {LONG_SCAN[1]} disagrees with its plain version")
+        if dtype == "bfloat16":
+            t = dict(max_abs_err=err, label="Bt {}, T {}, Din {}, N {}".format(*LONG_SCAN),
+                     ms=_graph_ms(torch, lambda: ks.ssm_scan_hopper(*args), reps=4, iters=5),
+                     launch_ms=_time_ms(torch, lambda: ks.ssm_scan_hopper(*args), iters=10),
+                     plain_ms=_event_ms(torch, lambda: ks.ssm_scan_plain(*args)),
+                     library_ms=None,
+                     bound=_bound(roofline.ssm_scan_work(*LONG_SCAN, args[0].element_size())))
+            timed[("ssm_scan", "jamba", "ring_prefill")] = t
+            _print_time("ssm_scan", dtype, "scan", "jamba ring_prefill", t)
+        del args, got, want
+        _free(torch)
+    print(f"phase long-kernels: {time.perf_counter() - t0:.1f} s")
+    return timed
+
+
+def _layer_counts(cfg):
+    """``cfg``'s Mamba and attention layers: the scan's and flash's launches
+    a prefill, and (attention) decode's a step."""
+    return cfg.layer_pattern.count("M"), cfg.layer_pattern.count("A")
+
+
+def self_consistency(torch, dev, cfg, shape, label, *, b, s):
+    """``cfg`` in fp32 from seed-0 weights: the last position's logits of a
+    prefill of ``s`` tokens against those of a prefill of ``s`` - DECODE_STEPS
+    tokens followed by DECODE_STEPS decode steps fed the same tokens.  One
+    function by two routes (the flash forward over the whole prompt; the
+    decode kernel over the cache or the wrapped ring and the scan's state
+    handed to the decode steps), held within MODEL_TOL, with exact launches."""
+    from repro_torch.models import registry
+
+    t0 = time.perf_counter()
+    bundle = registry.build(cfg, shape, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = bundle.init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    n_m, n_a = _layer_counts(cfg)
+    before = _counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        whole, caches, _ = bundle.prefill(model, {"tokens": tokens})
+        del caches
+        logits, caches, pos = bundle.prefill(model, {"tokens": tokens[:, :s - DECODE_STEPS]})
+        for i in range(DECODE_STEPS):
+            logits, caches = bundle.decode_step(model, caches, tokens[:, s - DECODE_STEPS + i],
+                                                pos + i)
+        rows = caches[cfg.layer_pattern.index("A")]["k"].shape[1]
+        del caches
+    got = tuple(a - c for a, c in zip(_counts(), before))
+    want = (2 * n_m, 2 * n_a, n_a * DECODE_STEPS)
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(whole).all())
+    err, ok = _close(logits, whole, MODEL_TOL)
+    print(f"self-consistency {label} fp32 B {b}: prefill of {s} tokens against a prefill of "
+          f"{s - DECODE_STEPS} and {DECODE_STEPS} decode steps ({rows}-row attention cache, window "
+          f"{bundle.window}): last logits max |diff| {err:.3e} (logit scale "
+          f"{whole.abs().max().item():.3f}) tol={MODEL_TOL} {'ok' if ok and finite else 'FAIL'}; "
+          f"launches ssm_scan, flash_attention, decode_attention {got} (expected {want}); "
+          f"{time.perf_counter() - t0:.1f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if whole.shape != (b, cfg.vocab_size) or not finite or not ok:
+        _fail(f"self-consistency {label}: prefill and prefill + decode disagree")
+    if got != want:
+        _fail(f"self-consistency {label}: launches {got} != {want}")
+    del model
+    _free(torch)
+
+
+def _fp32(cfg, **changes):
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32", **changes)
+
+
+def long_serve(torch, dev, cfg, shape, label, prompt):
+    """``cfg`` in bf16 from seed-0 weights made on the card, one request of
+    ``prompt`` (B rows) through the engine's request loop (``serve_request``:
+    exact launches, tokens in range); then a second prefill, timed (the
+    request's is the first at its shape in the process), and its
+    DECODE_STEPS greedy decode steps traced, for the decode steps' device
+    busy share against the request's unprofiled decode wall.  Returns the
+    launches (scan, flash, decode) and the numbers."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.models import registry
+
+    t0 = time.perf_counter()
+    bundle = registry.build(cfg, shape, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    n_m, n_a = _layer_counts(cfg)
+    ks.launches = kf.launches = kd.launches = 0                 # the main path starts here
+    got, st = serve_request(torch, bundle, model, prompt, f"long {label}",
+                            (n_m, n_a, n_a * DECODE_STEPS))
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, caches, pos = bundle.prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        again_ms = (time.perf_counter() - t1) * 1e3
+        if logits.shape != (prompt.shape[0], cfg.vocab_size) or not torch.isfinite(logits).all():
+            _fail(f"long {label}: prefill logits {tuple(logits.shape)} or not finite")
+        attn = caches[cfg.layer_pattern.index("A")]["k"].shape
+        state = {"caches": caches, "logits": logits}
+        del caches, logits
+
+        def steps():
+            c, lg = state.pop("caches"), state.pop("logits")
+            for i in range(DECODE_STEPS):
+                tok = lg.argmax(-1)
+                tok.cpu()                                       # as generate's loop does
+                lg, c = bundle.decode_step(model, c, tok, pos + i)
+            if not torch.isfinite(lg).all():
+                _fail(f"long {label}: decode logits not finite")
+
+        busy = _profile_call(torch, st.decode_s, steps,
+                             f"long {label} {DECODE_STEPS} decode steps", top=8,
+                             also=("decode_attn",))
+    idle = "not measured" if busy is None else f"{1 - busy:.3f}"
+    print(f"long {label} bf16: {weights / 1e9:.3f} GB of weights, max_seq {bundle.max_seq}, "
+          f"window {bundle.window}, attention cache {tuple(attn)}; the request's peak "
+          f"{peak / 1e9:.2f} GB allocated; a second prefill {again_ms:.2f} ms; decode idle "
+          f"share {idle}; {time.perf_counter() - t0:.1f} s")
+    del model, state
+    _free(torch)
+    return got, dict(prefill_ms=(st.prefill_s * 1e3, again_ms),
+                     ms_token=st.decode_s / DECODE_STEPS * 1e3, peak=peak, busy=busy)
+
+
+def prefill_32k_phase(torch, dev, timed):
+    """Phase 38 (P1): ``prefill_32k`` on full-width granite-3-2b in bf16 at
+    B 1 (the shape's batch of 32 cut: its 85.9 GB of KV cache), two prefills
+    of 32768 tokens through ``registry.build(cfg, SHAPES["prefill_32k"])``'s
+    bundle, exact launches (one flash a layer a prefill), finite (1, vocab)
+    logits; the roofline's bound for the same work beside the measured time;
+    then the fp32 self-consistency at 4 layers."""
+    from repro_torch.config import SHAPES, InputShape, get_config
+    from repro_torch.launch import roofline
+    from repro_torch.models import registry
+
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    shape = SHAPES["prefill_32k"]
+    s = shape.seq_len
+    bundle = registry.build(cfg, shape, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model = bundle.init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=dev)
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssm_scan as ks
+
+    times = []
+    with torch.inference_mode():
+        ks.launches = kf.launches = kd.launches = 0             # the main path starts here
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, caches, pos = bundle.prefill(model, {"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            rows = caches[0]["k"].shape
+            del caches
+        got = _counts()                                         # read just after it
+    peak = torch.cuda.max_memory_allocated()
+    want = (0, 2 * cfg.num_layers, 0)
+    print(f"prefill_32k {ARCH} bf16 B 1 x {s}: prefill ms {[round(x * 1e3, 2) for x in times]}, "
+          f"caches {tuple(rows)} a layer, next position {pos}, peak {peak / 1e9:.2f} GB "
+          f"allocated; launches ssm_scan, flash_attention, decode_attention {got} "
+          f"(expected {want})")
+    if got != want:
+        _fail(f"prefill_32k: launch counts {got} != {want}")
+    if logits.shape != (1, cfg.vocab_size) or not torch.isfinite(logits).all() or pos != s:
+        _fail(f"prefill_32k: logits {tuple(logits.shape)} not finite, or position {pos} != {s}")
+    del model, logits
+    _free(torch)
+    rec = roofline.analyze(cfg, InputShape("prefill_32k", s, 1, "prefill"))
+    best = min(times)
+    flash = timed[("flash_attention", "granite", "prefill_32k")]
+    print(f"roofline {ARCH} prefill_32k (B 1 x S {s}) on one H100: bound "
+          f"{rec['bound_s'] * 1e3:.3f} ms ({rec['dominant']}: compute "
+          f"{rec['compute_s'] * 1e3:.3f} ms, memory {rec['memory_s'] * 1e3:.3f} ms), FLOPs "
+          f"{rec['flops_per_device']:.4e} (flash's {rec['kernel_work']['flash_attention']['flops']:.4e}); "
+          f"measured {best * 1e3:.3f} ms; bound / measured {rec['bound_s'] / best:.3f}; the flash "
+          f"forward a call {flash['ms']:.4f} ms (x{cfg.num_layers} = "
+          f"{flash['ms'] * cfg.num_layers:.2f} ms), sdpa {flash['library_ms']:.4f} ms, bound "
+          f"{flash['bound'][0]:.4f} ms")
+    if not rec["bound_s"] <= best:
+        _fail(f"roofline prefill_32k: bound {rec['bound_s']} s above the measured {best} s")
+    self_consistency(torch, dev, _fp32(cfg, num_layers=LONG_CHECK_LAYERS), shape,
+                     f"{ARCH} x{LONG_CHECK_LAYERS} layers prefill_32k", b=1, s=s)
+    print(f"phase prefill_32k: {time.perf_counter() - t0:.1f} s")
+    return got[1], dict(prefill_ms=best * 1e3, peak=peak, bound_ms=rec["bound_s"] * 1e3)
+
+
+def decode_32k_phase(torch, dev):
+    """Phase 39 (P2): ``decode_32k`` on full-width granite-3-2b in bf16 at
+    B DECODE_32K_B (the shape's 128 cut: 343.6 GB of KV cache): 8 prompts of
+    32752 tokens in one prefill at max_seq 32768, then DECODE_STEPS decode
+    steps, the last at position 32767 (``long_serve``); then the fp32
+    self-consistency at LONG_CHECK_LAYERS layers, B 8."""
+    import numpy as np
+    from repro_torch.config import SHAPES, get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    shape = SHAPES["decode_32k"]
+    s = shape.seq_len
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (DECODE_32K_B, s - DECODE_STEPS))
+    launches, r = long_serve(torch, dev, cfg, shape, f"{ARCH} decode_32k", prompt)
+    self_consistency(torch, dev, _fp32(cfg, num_layers=LONG_CHECK_LAYERS), shape,
+                     f"{ARCH} x{LONG_CHECK_LAYERS} layers decode_32k", b=DECODE_32K_B, s=s)
+    print(f"phase decode_32k: {time.perf_counter() - t0:.1f} s")
+    return launches, r
+
+
+def train_4k_phase(torch, dev):
+    """Phase 40 (P3): ``train_4k`` on full-width granite-3-2b, bf16 weights,
+    fp32 AdamW in place, remat, S 4096 at the largest batch of
+    TRAIN_4K_BATCHES that fits (each that does not printed), TRAIN_4K_STEPS
+    steps at lr 3e-3 through ``launch/train.py``'s main (``train_phase``:
+    exact launches, finite falling losses, one traced step).  The flash
+    forward and backward at (8, 4096) are held and timed with the other
+    training shapes (``flash_bwd_phase``)."""
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.launch import roofline
+    from repro_torch.launch import train as launcher
+
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    s = TRAIN_4K_SEQ
+    for b in TRAIN_4K_BATCHES:
+        failure = None
+        try:
+            launches, res = train_phase(
+                torch, dev, cfg, f"{ARCH} train_4k", lambda: launcher.main(
+                    ["--arch", ARCH, "--steps", str(TRAIN_4K_STEPS), "--batch", str(b),
+                     "--seq", str(s), "--device", dev.type]),
+                steps=TRAIN_4K_STEPS, shape=(b, s))
+        except torch.OutOfMemoryError as e:
+            failure = str(e).splitlines()[0]
+        if failure is None:
+            break
+        print(f"train_4k {ARCH} B {b} x S {s}: does not fit one card ({failure})")
+        _free(torch)
+    else:
+        _fail(f"train_4k: no batch of {TRAIN_4K_BATCHES} fits")
+    busy = "not measured" if res["busy"] is None else f"{res['busy']:.3f}"
+    rec = roofline.analyze(cfg, InputShape("train_4k", s, b, "train"))
+    print(f"train_4k {ARCH}: chosen B {b} x S {s}; {res['step_s'] * 1e3:.1f} ms a step after "
+          f"step 1, {b * s / res['step_s']:.0f} tokens/s, peak {res['peak'] / 1e9:.2f} GB, busy "
+          f"share {busy}; roofline bound {rec['bound_s'] * 1e3:.3f} ms ({rec['dominant']}: "
+          f"compute {rec['compute_s'] * 1e3:.3f} ms, memory {rec['memory_s'] * 1e3:.3f} ms), "
+          f"bound / measured {rec['bound_s'] / res['step_s']:.3f}")
+    if not rec["bound_s"] <= res["step_s"]:
+        _fail(f"roofline train_4k: bound {rec['bound_s']} s above the measured {res['step_s']} s")
+    print(f"phase train_4k: {time.perf_counter() - t0:.1f} s")
+    return launches, res
+
+
+def ring_cfgs():
+    """long_500k's ring models: full-width h2o-danube-3-4b and one full-width
+    Jamba period (depth 32 -> 8, as the hybrid phases)."""
+    from repro_torch.config import get_config
+
+    return [(RING_ARCH, get_config(RING_ARCH)),
+            (f"{HYBRID} x{HYBRID_LAYERS}",
+             dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_LAYERS))]
+
+
+def long_ring_phase(torch, dev, label, cfg):
+    """Phase 41 (P4): ``long_500k`` on ``cfg``, B 1, built with
+    ``SHAPES["long_500k"]`` (max_seq 524288), so that each attention layer's
+    cache is a ring of min(window, max_seq) = 4096 slots: an 8192-token
+    prompt (the ring rolled in prefill), DECODE_STEPS decode steps each
+    overwriting the oldest slot (``long_serve``); then the fp32
+    self-consistency at full depth (an MoE's capacity raised so that no
+    token drops: dropping couples a prefill's tokens, which a decode step
+    never does; the smallest router gap and the largest expert load met
+    printed, a load past its capacity fatal)."""
+    import numpy as np
+    from repro_torch.config import SHAPES
+
+    t0 = time.perf_counter()
+    shape = SHAPES["long_500k"]
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, RING_PROMPT))
+    launches, r = long_serve(torch, dev, cfg, shape, f"{label} long_500k", prompt)
+    moe = {}
+    if cfg.moe is not None:
+        moe = {"moe": dataclasses.replace(cfg.moe, capacity_factor=RING_CHECK_CAPACITY)}
+    check = _fp32(cfg, **moe)
+    with router_gaps(torch, check, label) if cfg.moe else contextlib.nullcontext() as seen:
+        self_consistency(torch, dev, check, shape, f"{label} long_500k", b=1, s=RING_PROMPT)
+    if seen is not None and seen["load"] > seen["cap"]:
+        _fail(f"self-consistency {label}: an expert's load {seen['load']} passed its capacity "
+              f"{seen['cap']}, so tokens dropped and the two routes differ by design")
+    print(f"phase long_500k {label}: {time.perf_counter() - t0:.1f} s")
+    return launches, r
+
+
+
 def main() -> int:
     import torch
 
@@ -3574,6 +4223,11 @@ def main() -> int:
     served = {shape: arch_phase(torch, dev, arch, fp32_layers, bf16_layers)[0]
               for arch, shape, fp32_layers, bf16_layers in ARCHS}
     moe_layer_phase(torch, dev)
+    long_timed = long_kernel_phase(torch, dev)
+    p1_flash, _ = prefill_32k_phase(torch, dev, long_timed)
+    p2_launches, _ = decode_32k_phase(torch, dev)
+    p3_launches, _ = train_4k_phase(torch, dev)
+    ring = {label: long_ring_phase(torch, dev, label, cfg)[0] for label, cfg in ring_cfgs()}
     # a kernel on several main paths: each path's launches (counts set to 0
     # just before it, read just after) and its numbers at that path's shape.
     # whisper's prefill runs its 32 layers' flash calls at three shapes
@@ -3588,6 +4242,15 @@ def main() -> int:
                  at(kernel, shape, name))
                 for shape in SERVED_SHAPES for b, name in zip((1, SERVE_B), names)]
 
+    # the long shapes' paths (phases 38-41) at their own shapes
+    def long_at(kernel, shape, name):
+        return long_timed[(kernel, shape, name)]
+
+    # the training paths' (phase 18: granite's, the forecaster's, train_4k's)
+    def train_at(kind, shape, name):
+        return train_timed[(kind, shape, name)]
+
+    ring_names = [(label, "danube" if label == RING_ARCH else "jamba") for label in ring]
     paths = {"flash_attention": [
                  ("engine", launches["flash_attention"], at("flash_attention", "granite", "prefill")),
                  ("forecaster", fc_launches, fc_flash[1]),
@@ -3595,16 +4258,28 @@ def main() -> int:
                     at("flash_attention", "whisper", name))
                    for name in ("encoder", "decoder", "cross")),
                  ("internvl2", vl["flash_attention"], at("flash_attention", "internvl2", "prefill")),
-                 ("granite-train", train_launches[0], train_timed[("fwd", "granite")]),
-                 ("forecaster-train", fc_train_launches[0], train_timed[("fwd", "forecaster")]),
-                 *served_paths("flash_attention", 1, ("prefill", "prefill_b8"))],
+                 ("granite-train", train_launches[0], train_at("fwd", "granite", "train")),
+                 ("forecaster-train", fc_train_launches[0],
+                  train_at("fwd", "forecaster", "train")),
+                 *served_paths("flash_attention", 1, ("prefill", "prefill_b8")),
+                 ("prefill_32k", p1_flash, long_at("flash_attention", "granite", "prefill_32k")),
+                 ("decode_32k", p2_launches[1],
+                  long_at("flash_attention", "granite", "decode_32k_prefill")),
+                 ("train_4k", p3_launches[0], train_at("fwd", "granite", "train_4k")),
+                 *((f"long_500k-{label}", ring[label][1],
+                    long_at("flash_attention", shape, "ring_prefill"))
+                   for label, shape in ring_names)],
              "flash_attention_bwd": [
-                 ("granite-train", train_launches[1], train_timed[("bwd", "granite")]),
-                 ("forecaster-train", fc_train_launches[1], train_timed[("bwd", "forecaster")])],
+                 ("granite-train", train_launches[1], train_at("bwd", "granite", "train")),
+                 ("forecaster-train", fc_train_launches[1],
+                  train_at("bwd", "forecaster", "train")),
+                 ("train_4k", p3_launches[1], train_at("bwd", "granite", "train_4k"))],
              "ssm_scan": [
                  ("hybrid-serve", launches["ssm_scan"], timed["ssm_scan"]),
                  ("jamba-train", hybrid_train_launches[2], ssm_timed[("fwd", "jamba")]),
-                 ("jamba-smoke-train", smoke_launches[2], ssm_timed[("fwd", "smoke")])],
+                 ("jamba-smoke-train", smoke_launches[2], ssm_timed[("fwd", "smoke")]),
+                 (f"long_500k-{HYBRID} x{HYBRID_LAYERS}", ring[f"{HYBRID} x{HYBRID_LAYERS}"][0],
+                  long_at("ssm_scan", "jamba", "ring_prefill"))],
              "ssm_scan_bwd": [
                  ("jamba-train", hybrid_train_launches[3], ssm_timed[("bwd", "jamba")]),
                  ("jamba-smoke-train", smoke_launches[3], ssm_timed[("bwd", "smoke")])],
@@ -3614,13 +4289,16 @@ def main() -> int:
                  *((f"whisper-{name}", w["decode_attention"] // 2,
                     at("decode_attention", "whisper", name)) for name in ("self", "cross")),
                  ("internvl2", vl["decode_attention"], at("decode_attention", "internvl2", "decode")),
-                 *served_paths("decode_attention", 2, ("decode", "decode_b8"))],
+                 *served_paths("decode_attention", 2, ("decode", "decode_b8")),
+                 ("decode_32k", p2_launches[2], long_at("decode_attention", "granite", "decode_32k")),
+                 *((f"long_500k-{label}", ring[label][2], long_at("decode_attention", shape, "ring"))
+                   for label, shape in ring_names)],
              "cluster_step": [("sweep", launches["cluster_step"], timed["cluster_step"]),
                               ("gym", gym_launches, gym_timed)]}
     timed = {"flash_attention": at("flash_attention", "granite", "prefill"),
              "decode_attention": at("decode_attention", "granite", "decode"),
              "ssm_scan": timed["ssm_scan"], "cluster_step": timed["cluster_step"],
-             "flash_attention_bwd": train_timed[("bwd", "granite")],
+             "flash_attention_bwd": train_at("bwd", "granite", "train"),
              "ssm_scan_bwd": ssm_timed[("bwd", "jamba")],
              "decode_attention_stats": timed_stats}
 

@@ -68,6 +68,23 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out, m.reshape(b, hq, sq), linv.reshape(b, hq, sq)
 
 
+def flash_attention_plain_rows(q, k, v, *, causal: bool = True,
+                               window: Optional[int] = None, q_pos, kv_pos,
+                               max_bytes: int = 4 << 30):
+    """:func:`flash_attention_plain` evaluated over slices of q rows, each
+    slice against every key: the same rows, with a (B, Hq, rows, Skv) fp32
+    score tensor of at most ``max_bytes`` (at least one row a slice).  A row's
+    softmax depends on its own scores only, so the slices join into the whole
+    call's output; this is the plain version at lengths whose whole score
+    tensor does not fit (granite's 32 heads at 32768 keys: 137 GB)."""
+    b, sq, hq, _ = q.shape
+    rows = max(1, max_bytes // (4 * b * hq * k.shape[1]))
+    return torch.cat([flash_attention_plain(q[:, i:i + rows], k, v, causal=causal,
+                                            window=window, q_pos=q_pos[i:i + rows],
+                                            kv_pos=kv_pos)
+                      for i in range(0, sq, rows)], dim=1)
+
+
 def flash_attention_bwd_plain(q, k, v, out, dout, m, linv, *, causal: bool = True,
                               window: Optional[int] = None, q_pos, kv_pos):
     """(dq, dk, dv) of :func:`flash_attention_plain` for the output gradient

@@ -4,7 +4,9 @@ A CUDA kernel has no CPU mode, so every test here skips without a card.  The
 file imports neither JAX nor ``repro``, so it runs where only the port is
 installed: ``python -m pytest -q tests/test_torch_gpu.py`` on the H100.
 Tolerances are ``tests/test_kernels.py``'s (3e-5 fp32, 5e-2 bf16), with TF32
-off so that the plain version's fp32 products are full fp32.  The cluster step
+off so that the plain version's fp32 products are full fp32; at the long
+shapes bf16 outputs are also held row by row (``chip_smoke.ROW_TOL`` of each
+row's norm), a gate that refuses the kernel with its last key tile dropped.  The cluster step
 is held at ``tests/test_batchsim.py``'s ``rtol=1e-4, atol=1e-2`` on random
 cohort state from ``chip_smoke.random_tables`` (a numpy copy of that test's
 fixture).  The selective scan is held at the scan's 5e-5 (fp32) and 5e-2
@@ -937,3 +939,85 @@ def test_moe_layer_card_matches_cpu(cuda):
     assert all(gap < cs.MOE_GAP for gap in r["gaps"]), r
     assert r["rel_err"] <= cs.MOE_TOL, r
     np.testing.assert_allclose(*r["aux"], rtol=1e-5)
+
+
+# the config's long shapes: the flash forward at Skv 32768 (prefill_32k; a few
+# heads, its plain version over q-row slices) and with the 4096 window over
+# 8192 keys (long_500k's ring prefill, danube's D 120); the decode kernel at a
+# 32768-row cache (decode_32k, B 1 and 8) and on a wrapped 4096-slot ring
+# (every row valid); the flash backward at S 4096 (train_4k)
+LONG_FLASH_CASES = [
+    # (b, sq, skv, hq, hkv, d, window)
+    (1, 32768, 32768, 4, 1, 64, None),
+    (1, 8192, 8192, 8, 2, 120, 4096),
+]
+LONG_DECODE_CASES = [
+    # (b, s, hq, hkv, d, last valid row)
+    (1, 32768, 32, 8, 64, 32767),
+    (8, 32768, 32, 8, 64, 32752),
+    (1, 4096, 32, 8, 120, 4095),
+]
+
+
+def _assert_rows_close(got, want, bad=None):
+    """bf16 at the long shapes: every row within ``chip_smoke.ROW_TOL`` of
+    its own norm (the entries sit far below the absolute 5e-2), and ``bad``,
+    the kernel with its last key tile dropped, refused by that gate."""
+    cs = _chip_smoke()
+    assert cs._row_err(got, want) <= cs.ROW_TOL
+    if bad is not None:
+        assert cs._row_err(bad, want) > cs.ROW_TOL
+
+
+@pytest.mark.parametrize("case", LONG_FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_at_the_long_shapes_on_card(cuda, case, dtype):
+    b, sq, skv, hq, hkv, d, window = case
+    g = torch.Generator(device=cuda).manual_seed(20)
+    q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(DTYPES[dtype])
+    k, v = (torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(DTYPES[dtype])
+            for _ in range(2))
+    pos = torch.arange(skv, device=cuda, dtype=torch.int32)
+    args = dict(causal=True, window=window, q_pos=pos[skv - sq:], kv_pos=pos)
+    got = tflash.flash_attention_hopper(q, k, v, **args)
+    want = tflash.flash_attention_plain_rows(q, k, v, **args)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    if dtype == "bfloat16":
+        # the kernel over every key but the last tile's 64 fails the row gate
+        bad = tflash.flash_attention_hopper(q, k[:, :-64].contiguous(), v[:, :-64].contiguous(),
+                                            **dict(args, kv_pos=pos[:-64]))
+        _assert_rows_close(got, want, bad)
+
+
+@pytest.mark.parametrize("case", LONG_DECODE_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_the_long_caches_on_card(cuda, case, dtype):
+    b, s, hq, hkv, d, last = case
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(DTYPES[dtype])
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=cuda).to(DTYPES[dtype])
+            for _ in range(2))
+    mask = (torch.arange(s, device=cuda) <= last)[None].expand(b, s).contiguous()
+    got = tdecode.decode_attention_hopper(q, k, v, mask)
+    want = tdecode.decode_attention_plain(q, k, v, mask)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    if dtype == "bfloat16":
+        # the kernel with the last valid 32-row tile masked out fails the row gate
+        mask[:, last - 31:last + 1] = False
+        _assert_rows_close(got, want, tdecode.decode_attention_hopper(q, k, v, mask))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_at_train_4k_on_card(cuda, dtype):
+    """The backward at S 4096 (8 / 2 heads, D 64), fed the forward's
+    statistics, against its plain version."""
+    tensors, args = _bwd_inputs(cuda, (1, 4096, 4096, 8, 2, 64, True, None), dtype, 22)
+    got = tflash.flash_attention_bwd_hopper(*tensors, **args)
+    want = tflash.flash_attention_bwd_plain(*tensors, **args)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        torch.testing.assert_close(a.float(), w.float(), msg=name, **BWD_TOL[dtype])
+        if dtype == "bfloat16":
+            _assert_rows_close(a, w)
