@@ -247,13 +247,43 @@ Phases, each fatal on failure:
                16 decode steps, exact launches, ms a token, peak, idle share;
                the fp32 check at S 8192 (Jamba's MoE capacity raised so that
                no token drops; its smallest router gap printed).
+ 42-43. train whisper-large-v3, internvl2-1b — full width: the fp32 loss
+               and every gradient at B 1 (S 256; internvl2 S 512) through the
+               hand kernels against the plain path (GRAD_TOL), then 5 bf16
+               steps through launch/train.py's main at B 8 (internvl2 at S
+               512: its 256 image positions come first) writing --checkpoint:
+               exact launches, finite falling losses, ms a step, tokens/s,
+               peak GB, one traced step, the roofline's bound beside it;
+ 44. train xlstm-125m — full width: fp32 gradients card vs CPU at 2 layers
+               and S 64 (the sLSTM input gate's bias, whose exact gradient is
+               0, held to a floor), then 2 bf16 steps at the largest of B 8,
+               4, 2, 1 that fits (no hand kernel; host-bound);
+ 45. engine-b8 — the bf16 InferenceEngine built with batch=8 for granite-3-2b,
+               whisper (frames) and internvl2 (image embeds): cold start with
+               the warm-up at the B 8 spec, 3 requests of 8 prompts, restore,
+               the first request again (equal tokens), the tokens against
+               engine.generate's, rows not all equal, exact launches (a B 8
+               request launches what a B 1 request does), ms a token, one
+               traced request; restore vs cold start printed, not gated;
+ 46. rows    — each of those models in fp32 cut to 4 layers (whisper 4 + 4):
+               8 prompts in one prefill and 16 decode steps against each row
+               alone, last logits within 1e-3; the gate must refuse the B 8
+               logits with two rows swapped;
+ 47. serve-trained — whisper's and internvl2's checkpoints from phases
+               42-43 loaded into a SnapshotStore under a B 8 engine's key (at
+               the trained length), cold-started from it and served: weights
+               equal the checkpoint's, tokens equal engine.generate's on the
+               checkpoint's weights, exact launches.
 The kernel phase also holds the flash kernel to its plain version at the
 forecaster's shape (fp32, (B, 16, 4, 8), B 1 and 256) and times it, and
 both attention kernels at whisper's (encoder 1500 x 1500 non-causal, cross
 448 x 1500, decoder 448; decode against the 1500-row cross cache and the
 448-row self cache) and internvl2's (G 7) shapes, bf16 timed; and at the
 four served architectures' shapes (qwen2.5 G 5, starcoder2 G 12, qwen3-moe
-G 8, arctic G 7, all D 128) at B 1 and 8, their prefill and decode timed.
+G 8, arctic G 7, all D 128) at B 1 and 8, their prefill and decode timed,
+and at the B 8 engines' shapes (granite, whisper's encoder, cross and
+decoder, internvl2; decode against each B 8 cache), timed; the backward
+phase adds whisper's and internvl2's B 8 training shapes, timed.
 The granite engine phase also restores from the snapshot file alone (a store
 with no pinned host copy, as a new process has) beside the pinned restore,
 and holds the pinned restore under the cold start (C2).
@@ -297,9 +327,11 @@ HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8
 # (tests/test_batchsim.py, Pallas twin vs oracle)
 CLUSTER_TOL = dict(rtol=1e-4, atol=1e-2)
 BATCH_GRIDS = ("batch_dense64", "batch_grid64")
-# the xLSTM family at full width: fp32 card vs CPU on one set of weights, 12
-# recurrent layers over 512 steps (the model phase's tolerance)
+# the xLSTM family at full width: fp32 card vs CPU on one set of weights over
+# 512 steps (the model phase's tolerance), its depth cut 12 -> 4 (two mLSTM +
+# sLSTM pairs) for the script's time limit
 XLSTM = "xlstm-125m"
+XLSTM_CHECK_LAYERS = 4
 ENGINE_DRIVER_CELLS = ("engine_smoke", "calib/engine_paused", "calib/engine_snapshot")
 
 
@@ -324,12 +356,12 @@ def _row_err(got, want) -> float:
     return ((g - w).norm(dim=-1) / norm.maximum(floor)).max().item()
 
 
-def _long_close(got, want, dtype, tol=KERNEL_TOL):
-    """The kernel gate (``_close`` at ``tol[dtype]``) and, in bf16, the row
-    gate (``_row_err`` within ROW_TOL): (max abs error, row error or None,
-    ok)."""
+def _long_close(got, want, dtype, tol=KERNEL_TOL, rows=True):
+    """The kernel gate (``_close`` at ``tol[dtype]``) and, in bf16 with
+    ``rows``, the row gate (``_row_err`` within ROW_TOL): (max abs error, row
+    error or None, ok)."""
     err, ok = _close(got, want, tol[dtype])
-    if dtype != "bfloat16":
+    if dtype != "bfloat16" or not rows:
         return err, None, ok
     row = _row_err(got, want)
     return err, row, ok and row <= ROW_TOL
@@ -493,6 +525,27 @@ SERVED_DECODE_CASES = [c for shape in SERVED_SHAPES for c in (
     (shape, "decode_b8", SERVE_B, 512, None), (shape, "ragged_b8", SERVE_B, 512, (400, None)),
     *(((shape, "decode", 1, 512, None), (shape, "ragged", 1, 77, (60, None)))
       if shape != "starcoder2" else ()))]
+# the InferenceEngines built at SERVE_B (granite at 512, whisper at 448 with
+# 1500 frames, internvl2 at 512): their prefill's and decode step's shapes,
+# each timed and in bf16 also held to the row gate (ROW_TOL).  Where the keys
+# end in a partial tile (1500 = 23 x 64 + 28 for flash, 46 x 32 + 28 for
+# decode) the row gate must refuse the kernel without that tile's keys
+ENGINE_B8_FLASH = [
+    ("granite", "prefill_b8", SERVE_B, 512, 512, None, True),
+    ("whisper", "encoder_b8", SERVE_B, 1500, 1500, None, False),
+    ("whisper", "cross_b8", SERVE_B, 448, 1500, None, False),
+    ("whisper", "decoder_b8", SERVE_B, 448, 448, None, True),
+    ("internvl2", "prefill_b8", SERVE_B, 512, 512, None, True)]
+ENGINE_B8_DECODE = [
+    ("granite", "decode_b8", SERVE_B, 512, None),
+    ("whisper", "self_b8", SERVE_B, 448, None), ("whisper", "cross_b8", SERVE_B, 1500, None),
+    ("internvl2", "decode_b8", SERVE_B, 512, None),
+    ("internvl2", "ragged_b8", SERVE_B, 512, (400, None))]
+SERVED_FLASH_CASES += ENGINE_B8_FLASH
+SERVED_DECODE_CASES += ENGINE_B8_DECODE
+FLASH_KEY_TILE, DECODE_KEY_TILE = 64, 32
+ENGINE_B8_TIMED = {*(("flash_attention", shape, name) for shape, name, *_ in ENGINE_B8_FLASH),
+                   *(("decode_attention", shape, name) for shape, name, *_ in ENGINE_B8_DECODE)}
 # the bf16 cases timed: every main path's shape
 TIMED = {("flash_attention", "granite", "prefill"), ("flash_attention", "jamba", "prefill"),
          ("flash_attention", "whisper", "encoder"), ("flash_attention", "whisper", "cross"),
@@ -503,7 +556,7 @@ TIMED = {("flash_attention", "granite", "prefill"), ("flash_attention", "jamba",
          *((kernel, shape, name) for shape in SERVED_SHAPES
            for kernel, names in (("flash_attention", ("prefill", "prefill_b8")),
                                  ("decode_attention", ("decode", "decode_b8")))
-           for name in names)}
+           for name in names), *ENGINE_B8_TIMED}
 
 
 def _sass_counts(name: str, ops=("HGMMA", "UTMALDG"), kernel=None):
@@ -555,7 +608,8 @@ def kernel_phase(torch, dev):
     decode_cases = [(shape, name, 1, *rest) for shape, name, *rest in DECODE_CASES]
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        for shape, name, b, sq, skv, window, causal in flash_cases + SERVED_FLASH_CASES:
+        for case in flash_cases + SERVED_FLASH_CASES:
+            shape, name, b, sq, skv, window, causal = case
             hq, hkv, d = ATTN_SHAPES[shape]
             q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(tdt)
             k = torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(tdt)
@@ -568,12 +622,22 @@ def kernel_phase(torch, dev):
             got = kf.flash_attention_hopper(q, k, v, **args)
             want = kf.flash_attention_plain(q, k, v, **args)
             torch.cuda.synchronize()
-            err, ok = _close(got, want, KERNEL_TOL[dtype])
+            rows = case in ENGINE_B8_FLASH
+            err, row, ok = _long_close(got, want, dtype, rows=rows)
             print(f"kernel flash_attention {dtype} {shape} {hq}/{hkv} D={d} {name} B={b} Sq={sq} "
                   f"Skv={skv} window={window} causal={causal}: max_abs_err={err:.3e} "
-                  f"tol={KERNEL_TOL[dtype]} {'ok' if ok else 'FAIL'}")
+                  f"tol={KERNEL_TOL[dtype]}{_rows(row)} {'ok' if ok else 'FAIL'}")
             if not ok or not torch.isfinite(got.float()).all():
                 _fail(f"flash_attention {dtype} {shape} {name} disagrees with its plain version")
+            cut = skv % FLASH_KEY_TILE
+            if rows and dtype == "bfloat16" and cut:
+                # the kernel over every key but the last, partial tile's
+                bad = kf.flash_attention_hopper(q, k[:, :-cut].contiguous(),
+                                                v[:, :-cut].contiguous(),
+                                                **dict(args, kv_pos=kv_pos[:-cut]))
+                _gate_rejects(f"flash_attention {shape} {name} (the last {cut} keys)", dtype,
+                              bad, want)
+                del bad
             if dtype == "bfloat16" and ("flash_attention", shape, name) in TIMED:
                 pairs = attention_mask(q_pos, kv_pos, causal=causal, window=window).sum().item()
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -585,7 +649,8 @@ def kernel_phase(torch, dev):
                                   lambda: kf.flash_attention_plain(q, k, v, **args),
                                   lambda: F.scaled_dot_product_attention(
                                       qt, kt, vt, is_causal=causal, enable_gqa=True)))
-        for shape, name, b, s, mask_kind in decode_cases + SERVED_DECODE_CASES:
+        for case in decode_cases + SERVED_DECODE_CASES:
+            shape, name, b, s, mask_kind = case
             hq, hkv, d = ATTN_SHAPES[shape]
             q = torch.randn((b, hq, d), generator=gen, device=dev).to(tdt)
             k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(tdt)
@@ -602,12 +667,21 @@ def kernel_phase(torch, dev):
             got = kd.decode_attention_hopper(q, k, v, mask)
             want = kd.decode_attention_plain(q, k, v, mask)
             torch.cuda.synchronize()
-            err, ok = _close(got, want, KERNEL_TOL[dtype])
+            rows = case in ENGINE_B8_DECODE
+            err, row, ok = _long_close(got, want, dtype, rows=rows)
             print(f"kernel decode_attention {dtype} {shape} {hq}/{hkv} D={d} {name} B={b} S={s} "
                   f"splits={kd.decode_splits(b, s, hkv, kd._sms(0))}: max_abs_err={err:.3e} "
-                  f"tol={KERNEL_TOL[dtype]} {'ok' if ok else 'FAIL'}")
+                  f"tol={KERNEL_TOL[dtype]}{_rows(row)} {'ok' if ok else 'FAIL'}")
             if not ok or not torch.isfinite(got.float()).all():
                 _fail(f"decode_attention {dtype} {shape} {name} disagrees with its plain version")
+            cut = s % DECODE_KEY_TILE
+            if rows and dtype == "bfloat16" and cut and mask_kind is None:
+                # the kernel with the last, partial tile's rows masked out
+                short = mask.clone()
+                short[:, -cut:] = False
+                _gate_rejects(f"decode_attention {shape} {name} (the last {cut} rows)", dtype,
+                              kd.decode_attention_hopper(q, k, v, short), want)
+                del short
             if dtype == "bfloat16" and ("decode_attention", shape, name) in TIMED:
                 n_valid = mask.sum().item()
                 qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
@@ -623,7 +697,9 @@ def kernel_phase(torch, dev):
     for (kernel, shape, name), t in timed.items():
         _print_time(kernel, "bfloat16", shape, name, t)
     for shape, b, s in (("granite", 1, MAX_SEQ), ("whisper", 1, 1500), ("internvl2", 1, MAX_SEQ),
-                        *((shape, b, MAX_SEQ) for shape in SERVED_SHAPES for b in (1, SERVE_B))):
+                        *((shape, b, MAX_SEQ) for shape in SERVED_SHAPES for b in (1, SERVE_B)),
+                        ("granite", SERVE_B, MAX_SEQ), ("whisper", SERVE_B, 1500),
+                        ("whisper", SERVE_B, ENCDEC_SEQ), ("internvl2", SERVE_B, MAX_SEQ)):
         hq, hkv, d = ATTN_SHAPES[shape]
         splits = kd.decode_splits(b, s, hkv, kd._sms(0))
         print(f"decode_attention splits at {shape}'s decode (B {b}, S {s}, {hkv} kv heads, G "
@@ -772,13 +848,18 @@ def _free(torch):
 
 
 def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=None,
-                 zero_tail=False, designs=True, batched=False, restore_gate=True):
-    """The bf16 full-width InferenceEngine: cold start, REQUESTS requests,
-    scale to zero, snapshot restore, 1 request (the first's tokens), with
-    exact launch counts; ``launches`` is (flash a prefill, decode a decode
-    step), one attention layer's each by default.  ``extras(rng)`` draws a
-    request's other inputs; ``zero_tail``: every token after the first is 0
-    (whisper's decode past its position table).  With ``batched``, one
+                 zero_tail=False, designs=True, batched=False, restore_gate=True, batch=1):
+    """The bf16 full-width InferenceEngine built for ``batch`` rows: cold
+    start, REQUESTS requests (``batch`` different prompts each), scale to
+    zero, snapshot restore, 1 request (the first's tokens), with exact launch
+    counts; ``launches`` is (flash a prefill, decode a decode step), one
+    attention layer's each by default.  ``extras(rng)`` draws a request's
+    other inputs; ``zero_tail``: every token after the first is 0 (whisper's
+    decode past its position table: its token gates then cover the prefill's
+    token alone).  At ``batch`` > 1 the first request's prefill logits are
+    finite and not equal in every row (``_prefill_logits``), its tokens
+    equal ``engine.generate``'s on the engine's bundle and weights, and its
+    rows are not all equal.  With ``batched``, one
     SERVE_B-row request through the engine's loop on its bundle and weights
     (counted apart, under ``"b8"``).  Then the restore designs (granite) or
     the restore gate (without ``restore_gate``, the comparison printed only),
@@ -788,13 +869,14 @@ def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=Non
     from repro_torch.core.lifecycle import Phase
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
-    from repro_torch.serving.engine import InferenceEngine, SnapshotStore
+    from repro_torch.serving.engine import InferenceEngine, SnapshotStore, generate
 
     cfg = get_config(arch)
     vocab = cfg.vocab_size
     per_prefill, per_step = launches or (cfg.num_layers, cfg.num_layers)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, vocab, (1, max_seq)).astype(np.int32) for _ in range(REQUESTS)]
+    prompts = [rng.integers(0, vocab, (batch, max_seq)).astype(np.int32)
+               for _ in range(REQUESTS)]
     inputs = [extras(rng) if extras else None for _ in range(REQUESTS)]
 
     def counts():
@@ -811,7 +893,7 @@ def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=Non
         return eng.serve(prompts[i], decode_steps=DECODE_STEPS, extras=inputs[i])
 
     with tempfile.TemporaryDirectory() as snapdir:
-        eng = InferenceEngine(arch, smoke=False, max_seq=max_seq, batch=1,
+        eng = InferenceEngine(arch, smoke=False, max_seq=max_seq, batch=batch,
                               store=SnapshotStore(snapdir), device="cuda")
         kf.launches = kd.launches = 0               # the main path starts here
         c = counts()
@@ -824,14 +906,20 @@ def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=Non
             c = counts()
             out, st = serve(i)
             prefills.append(st.prefill_s)
-            print(f"engine {arch} serve {i}: prefill {st.prefill_s * 1e3:.2f} ms, decode "
+            at_b, rows = "", ""
+            if batch > 1:
+                at_b = f" B {batch}"
+                rows = (f", {st.decode_s / st.tokens / batch * 1e3:.3f} ms a row's token, "
+                        f"{len(set(map(tuple, out.tolist())))} distinct rows")
+            print(f"engine {arch}{at_b} serve {i}: prefill {st.prefill_s * 1e3:.2f} ms, decode "
                   f"{st.decode_s * 1e3:.2f} ms for {st.tokens} tokens "
-                  f"({st.decode_s / st.tokens * 1e3:.3f} ms/token), tokens {out[0].tolist()}")
+                  f"({st.decode_s / st.tokens * 1e3:.3f} ms/token{rows}), tokens "
+                  f"{out[0].tolist()}")
             expect(f"serve {i}", c, per_prefill, per_step * DECODE_STEPS)
-            if out.shape != (1, DECODE_STEPS) or not ((out >= 0) & (out < vocab)).all():
+            if out.shape != (batch, DECODE_STEPS) or not ((out >= 0) & (out < vocab)).all():
                 _fail(f"{arch} serve {i} tokens out of range: {out}")
-            if zero_tail and (out[0, 1:] != 0).any():
-                _fail(f"{arch} serve {i}: tokens after the first {out[0, 1:]} are not all 0")
+            if zero_tail and (out[:, 1:] != 0).any():
+                _fail(f"{arch} serve {i}: tokens after the first {out[:, 1:]} are not all 0")
             outs.append(out)
         if zero_tail:
             print(f"engine {arch}: every token after the first is 0 (decodes at max_seq + i "
@@ -855,6 +943,19 @@ def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=Non
               f"({per_prefill}/prefill), decode_attention {total[1]} ({per_step}/decode step)")
         if total != want:
             _fail(f"{arch} engine run launches {total} != {want}")
+        if batch > 1:
+            _prefill_logits(torch, eng.bundle, eng.params, prompts[0], inputs[0],
+                            f"engine {arch} B {batch}")
+            loop, _ = generate(eng.bundle, eng.params, prompts[0], decode_steps=DECODE_STEPS,
+                               extras=inputs[0])
+            distinct = len(set(map(tuple, outs[0].tolist())))
+            print(f"engine {arch} B {batch}: served tokens equal engine.generate's on its bundle "
+                  f"and weights {np.array_equal(loop, outs[0])}; {distinct} distinct rows of "
+                  f"{batch}")
+            if not np.array_equal(loop, outs[0]):
+                _fail(f"{arch} B {batch}: served tokens {outs[0]} != generate's {loop}")
+            if distinct == 1:
+                _fail(f"{arch} B {batch}: every row's tokens are equal ({outs[0][0]})")
         b8 = None
         if batched:
             wide = rng.integers(0, vocab, (SERVE_B, max_seq))
@@ -877,9 +978,28 @@ def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=Non
                       f"(deps_load {bd.seconds.get(Phase.DEPS_LOAD, 0.0) * 1e3:.2f} ms drawing "
                       f"the weights on the card, code_init "
                       f"{bd.seconds.get(Phase.CODE_INIT, 0.0) * 1e3:.2f} ms)")
-        profile = profile_serve(torch, lambda: _wall(serve(1)[1]))
+        profile = profile_serve(torch, lambda: _wall(serve(1)[1]),
+                                check=arch == ARCH and batch > 1)
     return {"flash_attention": total[0], "decode_attention": total[1],
             "prefill_s": min(prefills), "b8": b8, "profile": profile}
+
+
+def _prefill_logits(torch, bundle, params, tokens, extras, label):
+    """One prefill of ``tokens`` (and ``extras``) on ``bundle`` and
+    ``params``, its inputs made as the engine's loop makes them: the (B,
+    vocab) last logits in fp32, which must be finite and not equal in every
+    row (outside any counted run)."""
+    with torch.inference_mode():
+        batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(bundle.device)}
+        batch.update({k: torch.as_tensor(v).to(bundle.device) for k, v in (extras or {}).items()})
+        logits = bundle.prefill(params, batch)[0].float()
+    finite = bool(torch.isfinite(logits).all())
+    differ = bool((logits[1:] != logits[:1]).any())
+    print(f"{label}: prefill logits {tuple(logits.shape)} finite {finite}, rows not all equal "
+          f"{differ}")
+    if not (finite and differ):
+        _fail(f"{label}: prefill logits not finite, or equal in every row")
+    return logits
 
 
 def _gate_restore(label, cold, restore):
@@ -922,39 +1042,71 @@ def _wall(stats) -> float:
     return stats.prefill_s + stats.decode_s
 
 
-def _busy_us(events) -> float:
-    """Microseconds in which the device ran at least one of ``events`` (the
+def _device_spans(prof):
+    """(name, start us, end us) of each device activity in a finished
+    torch.profiler trace, read from the profiler's raw results: building its
+    FunctionEvents (``prof.events()``) takes about a minute at the ~10^6
+    events of one xlstm-125m train step.  Times count from the trace's start,
+    as the FunctionEvents' do: nanoseconds since the epoch (~1.8e18) in
+    microseconds as a double keep only a quarter of a microsecond."""
+    from torch.autograd import DeviceType
+
+    results = prof.profiler.kineto_results
+    t0 = results.trace_start_ns()
+    return [(e.name(), (e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3)
+            for e in results.events() if e.device_type() == DeviceType.CUDA]
+
+
+def _busy_us(spans) -> float:
+    """Microseconds in which the device ran at least one of ``spans`` (the
     union of their intervals): a kernel launched to wait on the one before it
     (the decode kernel's combine) overlaps it, and summing their durations
     would count that stretch twice."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
-    for a, b in spans:
+    for _, a, b in sorted(spans, key=lambda span: span[1]):
         if b > end:
             busy += b - max(a, end)
             end = b
     return busy
 
 
-def profile_serve(torch, serve):
+def _check_spans(prof, spans):
+    """``_device_spans`` against the profiler's FunctionEvents of the same
+    trace (``prof.events()``, device events only): the same count and the same
+    union of intervals (their clocks differ by the trace's start)."""
+    from torch.autograd import DeviceType
+
+    events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    raw, old = _busy_us(spans), _busy_us(events)
+    same = len(events) == len(spans) and abs(raw - old) <= 1e-6 * old + 1e-3
+    print(f"profile spans: the raw results' {len(spans)} device spans, busy {raw:.3f} us; the "
+          f"FunctionEvents' {len(events)}, busy {old:.3f} us: the same {same}")
+    if not same:
+        _fail("the profiler's raw device spans differ from its FunctionEvents")
+
+
+def profile_serve(torch, serve, check=False):
     """Device busy share and kernel time by name over one warm request: the
     wall time from an unprofiled request, the kernel time from a traced one
     (device activity only: an xLSTM request launches ~10^5 eager ops).
-    ``serve()`` runs one request and returns its wall seconds."""
+    ``serve()`` runs one request and returns its wall seconds; with
+    ``check``, the trace's spans are also read through ``_check_spans``."""
     from collections import defaultdict
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     wall_us = serve() * 1e6
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve()
+    spans = _device_spans(prof)
+    if check:
+        _check_spans(prof, spans)
     by_name = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name][0] += e.time_range.elapsed_us()
-            by_name[e.name][1] += 1
-    busy = _busy_us([e for e in prof.events() if e.device_type == DeviceType.CUDA])
+    for name, a, b in spans:
+        by_name[name][0] += b - a
+        by_name[name][1] += 1
+    busy = _busy_us(spans)
     if busy == 0:
         print("profile: no device time recorded (not measured)")
         return None
@@ -1274,7 +1426,6 @@ def _profile_call(torch, wall_s, call, label, top=4, also=()):
     busy share (None where no device time was recorded)."""
     from collections import defaultdict
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # device activity only: the host's ops would only slow the trace's processing
@@ -1283,10 +1434,10 @@ def _profile_call(torch, wall_s, call, label, top=4, also=()):
         torch.cuda.synchronize()
     by_name = defaultdict(float)
     count = defaultdict(int)
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    for e in device:
-        by_name[e.name] += e.time_range.elapsed_us()
-        count[e.name] += 1
+    device = _device_spans(prof)
+    for name, a, b in device:
+        by_name[name] += b - a
+        count[name] += 1
     busy = _busy_us(device)
     if busy == 0:
         print(f"profile {label}: no device time recorded (not measured)")
@@ -1334,22 +1485,23 @@ def _spot_check(torch):
 def _device_launches(torch, fn) -> int:
     """Device activities (kernels, copies, fills) recorded by torch.profiler
     over one ``fn()``: the host's launches."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return len(_device_spans(prof))
 
 
 def xlstm_model_phase(torch, dev):
-    """Full-width xlstm-125m in fp32: a MAX_SEQ-token prefill and 4 decode
-    steps on the card against the same weights on the CPU."""
+    """xlstm-125m at full width cut to XLSTM_CHECK_LAYERS layers, in fp32: a
+    MAX_SEQ-token prefill and 4 decode steps on the card against the same
+    weights on the CPU."""
     from repro_torch.config import get_config
     from repro_torch.models import registry
 
-    cfg = dataclasses.replace(get_config(XLSTM), dtype="float32", param_dtype="float32")
+    cfg = dataclasses.replace(get_config(XLSTM), num_layers=XLSTM_CHECK_LAYERS,
+                              dtype="float32", param_dtype="float32")
     card = registry.build(cfg, max_seq=MAX_SEQ, device=dev)
     host = registry.build(cfg, max_seq=MAX_SEQ, device="cpu")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1971,17 +2123,22 @@ ENCDEC, ENCDEC_SEQ = "whisper-large-v3", 448
 # internvl2-1b with 256 image embeddings a request; the fp32 model phase's
 # prompt keeps 300 - 256 = 44 text tokens
 VISION, VISION_PROMPT = "internvl2-1b", 300
+# internvl2 trains at S 512: its 256 image embeddings take the first 256
+# positions of a sequence (the model keeps S the tokens' length and labels
+# none of them), so at the launcher's S 256 no position would carry a label
+VISION_TRAIN_SEQ = 512
 # fuse_chain's pair (tests/test_serving.py's): granite -> h2o-danube-3
 CHAIN = ("granite-3-2b", "h2o-danube-3-4b")
 
 
-def _extras(torch, cfg):
+def _extras(torch, cfg, batch: int = 1):
     """Random draws of the prefill's other input (whisper's frames, internvl2's
-    image embeds): from a torch Generator (the model phase) and from a numpy
-    Generator (a request's extras, fp32; the engine casts them)."""
-    key, shape = (("frames", (1, cfg.encoder.num_frames, cfg.encoder.d_model))
+    image embeds) for ``batch`` rows: from a torch Generator (the model phase)
+    and from a numpy Generator (a request's extras, fp32; the engine casts
+    them)."""
+    key, shape = (("frames", (batch, cfg.encoder.num_frames, cfg.encoder.d_model))
                   if cfg.encoder is not None else
-                  ("image_embeds", (1, cfg.vision.num_image_tokens, cfg.vision.d_embed)))
+                  ("image_embeds", (batch, cfg.vision.num_image_tokens, cfg.vision.d_embed)))
     return (lambda gen: {key: torch.randn(shape, generator=gen, device=gen.device)},
             lambda rng: {key: rng.standard_normal(shape).astype("float32")})
 
@@ -2162,12 +2319,26 @@ BWD_CASES = [(shape, name, 1, sq, skv, window, causal, 0)
     ("granite", "train", *TRAIN_SHAPE, TRAIN_SHAPE[1], None, True, 0),
     ("forecaster", "train", FORECASTER_TRAIN_B, 16, 16, None, True, 0),
     ("granite", "no_valid_key", 1, 100, 100, None, True, 40),
-    ("granite", "train_4k", TRAIN_4K_BATCHES[0], TRAIN_4K_SEQ, TRAIN_4K_SEQ, None, True, 0)]
+    ("granite", "train_4k", TRAIN_4K_BATCHES[0], TRAIN_4K_SEQ, TRAIN_4K_SEQ, None, True, 0),
+    # the full-width training steps of whisper (B 8 x S 256 on 1500 frames:
+    # its encoder, its cross and its decoder's self-attention) and internvl2
+    # (256 image positions before 256 text tokens)
+    ("whisper", "train_encoder", TRAIN_SHAPE[0], 1500, 1500, None, False, 0),
+    ("whisper", "train_cross", TRAIN_SHAPE[0], TRAIN_SHAPE[1], 1500, None, False, 0),
+    ("whisper", "train_decoder", *TRAIN_SHAPE, TRAIN_SHAPE[1], None, True, 0),
+    ("internvl2", "train", TRAIN_SHAPE[0], VISION_TRAIN_SEQ, VISION_TRAIN_SEQ, None, True, 0)]
 # the cases timed, each with its graphs' (reps, iters): the training paths'
 BWD_TIMED = {("granite", "train", "bfloat16"): (20, 10),
              ("forecaster", "train", "float32"): (20, 10),
-             ("granite", "train_4k", "bfloat16"): (2, 3)}
-BWD_LONG = {"train_4k"}       # in bf16 also the row gate (ROW_TOL) and a dropped key tile
+             ("granite", "train_4k", "bfloat16"): (2, 3),
+             ("whisper", "train_encoder", "bfloat16"): (5, 4),
+             ("whisper", "train_cross", "bfloat16"): (20, 10),
+             ("whisper", "train_decoder", "bfloat16"): (20, 10),
+             ("internvl2", "train", "bfloat16"): (20, 10)}
+# in bf16 also the row gate (ROW_TOL) on the backward and the forward's output,
+# and the backward without its last key tile (the partial one at Skv 1500)
+BWD_LONG = {("granite", "train_4k"), ("whisper", "train_encoder"), ("whisper", "train_cross"),
+            ("whisper", "train_decoder"), ("internvl2", "train")}
 # the scan's backward against its plain version: fp32 sums over channels,
 # time and states in another order (the flash backward's 1e-4); bf16 du, dB
 # and dC are one rounding of an fp32 sum
@@ -2201,8 +2372,9 @@ def flash_bwd_phase(torch, dev):
     """On every case of BWD_CASES, fp32 and bf16: the forward's row statistics
     against its plain version's and its output with them bit-equal to its
     output without; the flash backward kernel against its plain version, two
-    calls bit-equal (at train_4k also the row gate, which must refuse the
-    backward with its last key tile dropped).  At the training paths' shapes
+    calls bit-equal (at BWD_LONG's bf16 cases also the row gate on the
+    gradients and the forward's output, which must refuse the backward with
+    its last key tile dropped).  At the training paths' shapes
     (BWD_TIMED) the backward and the forward (the training path's, with
     statistics, and serving's) timed by graph replay beside the plain
     versions and, as a yardstick, scaled_dot_product_attention's forward and
@@ -2250,11 +2422,12 @@ def flash_bwd_phase(torch, dev):
             ok = all(o for _, o in errs) and same and all(torch.isfinite(g.float()).all()
                                                          for g in got)
             rows = ""
-            if name in BWD_LONG and dtype == "bfloat16":
-                row_errs = [_row_err(g, w) for g, w in zip(got, want)]
+            long = (shape, name) in BWD_LONG and dtype == "bfloat16"
+            if long:
+                row_errs = [_row_err(g, w) for g, w in zip((*got, out), (*want, pout))]
                 ok = ok and all(r <= ROW_TOL for r in row_errs)
                 rows = (f"row error dq {row_errs[0]:.3e} dk {row_errs[1]:.3e} dv "
-                        f"{row_errs[2]:.3e} (ROW_TOL {ROW_TOL}) ")
+                        f"{row_errs[2]:.3e} out {row_errs[3]:.3e} (ROW_TOL {ROW_TOL}) ")
             stats_ok = same_out and all(o for _, o in stat_errs)
             print(f"kernel flash_attention_bwd {dtype} {shape} {hq}/{hkv} D={d} {name} B={b} "
                   f"Sq={sq} Skv={skv} window={window} causal={causal} keys from {shift}: "
@@ -2270,15 +2443,16 @@ def flash_bwd_phase(torch, dev):
             if not ok:
                 _fail(f"flash_attention_bwd {dtype} {shape} {name} disagrees with its plain "
                       f"version or is not deterministic")
-            if name in BWD_LONG and dtype == "bfloat16":
-                # the backward over every key but the last tile's 64: dq misses
-                # their terms, and their dk / dv rows stay zero
+            if long:
+                # the backward over every key but the last tile's (64, or the
+                # partial tile's): dq misses their terms, their dk / dv rows stay 0
+                cut = skv % FLASH_KEY_TILE or FLASH_KEY_TILE
                 bad = kf.flash_attention_bwd_hopper(
-                    q, k[:, :-64].contiguous(), v[:, :-64].contiguous(), out, dout, m, linv,
-                    **dict(args, kv_pos=kv_pos[:-64]))
-                pad = torch.zeros_like(k[:, -64:])
+                    q, k[:, :-cut].contiguous(), v[:, :-cut].contiguous(), out, dout, m, linv,
+                    **dict(args, kv_pos=kv_pos[:-cut]))
+                pad = torch.zeros_like(k[:, -cut:])
                 bad = (bad[0], *(torch.cat([x, pad], dim=1) for x in bad[1:]))
-                _gate_rejects(f"flash_attention_bwd {shape} {name}", dtype,
+                _gate_rejects(f"flash_attention_bwd {shape} {name} (the last {cut} keys)", dtype,
                               torch.cat([x.flatten(0, -2) for x in bad]),
                               torch.cat([x.flatten(0, -2) for x in want]), BWD_TOL)
                 del bad
@@ -2497,16 +2671,35 @@ def _reset_train_counts():
     kf.launches = kf.bwd_launches = ks.launches = ks.bwd_launches = 0
 
 
+def _flash_calls(cfg) -> int:
+    """Flash attention calls in one forward pass of ``cfg``: an encoder-decoder's
+    encoder layers one each and its decoder layers two (self, cross); an
+    LM's attention layers one each."""
+    if cfg.encoder is not None:
+        return cfg.encoder.num_layers + 2 * cfg.num_layers
+    return cfg.layer_pattern.count("A")
+
+
+def _serve_calls(cfg):
+    """(flash calls a prefill, decode attention calls a decode step) of
+    ``cfg``: a decoder layer of an encoder-decoder decodes against its self
+    and its cross cache."""
+    if cfg.encoder is not None:
+        return _flash_calls(cfg), 2 * cfg.num_layers
+    n = cfg.layer_pattern.count("A")
+    return n, n
+
+
 def _train_want(cfg, passes: int):
     """Launches of ``passes`` forward + backward passes of ``cfg``: flash
     forward, flash backward kernels, scan forward, scan backward kernels.
-    Each attention and Mamba layer runs its forward twice under remat (again
-    in the backward) and its backward kernels once."""
+    Each attention call and Mamba layer runs its forward twice under remat
+    (again in the backward) and its backward kernels once."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ssm_scan as ks
 
     fwd = 2 if cfg.remat else 1
-    n_a, n_m = cfg.layer_pattern.count("A"), cfg.layer_pattern.count("M")
+    n_a, n_m = _flash_calls(cfg), cfg.layer_pattern.count("M")
     return (fwd * n_a * passes, kf.BWD_KERNELS * n_a * passes, fwd * n_m * passes,
             ks.BWD_KERNELS * n_m * passes)
 
@@ -2520,6 +2713,32 @@ def hybrid_train_cfg():
 
     return dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_TRAIN_LAYERS,
                                block_pattern=HYBRID_TRAIN_PATTERN)
+
+
+def _gate_grads(torch, label, got, want, names=("kernel", "plain"), zero=0.0):
+    """GRAD_TOL on ``got`` = (loss, {leaf: grad}) against ``want``
+    (``_grad_gap``): the loss, the gradient norm (both relative) and every
+    leaf within ``leaf`` of its largest gradient; ``names`` label the two
+    sides.  With ``zero``, a leaf whose gradient on both sides stays below
+    ``zero`` x the largest gradient of any leaf is one whose exact gradient
+    is 0 (rounding alone sets its digits, so it has no scale of its own): it
+    is named, and passes only while both sides stay below that floor."""
+    gk, gp = got[1], want[1]
+    floor = zero * max(g.abs().max().item() for g in gp.values())
+    zeros = [k for k in gp if max(gp[k].abs().max().item(), gk[k].abs().max().item()) < floor]
+    gap = _grad_gap(torch, got, want, skip=zeros)
+    if zero:
+        print(f"{label}: leaves whose gradient stays below {zero} of the largest on both "
+              f"sides (exactly 0 in the model's math): {zeros or 'none'}")
+    (lk, lp), (nk, np_) = gap["losses"], gap["norms"]
+    a, b = names
+    print(f"{label}: loss {a} {lk:.7f} {b} {lp:.7f} "
+          f"(rel {gap['loss']:.2e}, tol {GRAD_TOL['loss']}); grad norm {a} "
+          f"{nk:.6f} {b} {np_:.6f} (rel {gap['norm']:.2e}, tol {GRAD_TOL['norm']}); "
+          f"worst leaf max|diff| / max|grad| {gap['leaf']:.2e} at {gap['leaf_name']} (tol "
+          f"{GRAD_TOL['leaf']}); {len(gp)} leaves")
+    if not (all(gap[k] <= GRAD_TOL[k] for k in GRAD_TOL) and math.isfinite(nk)):
+        _fail(f"{label}: the {a} path's loss or gradients disagree with the {b} path's")
 
 
 def train_grad_phase(torch, dev, cfg, label, shape):
@@ -2551,31 +2770,11 @@ def train_grad_phase(torch, dev, cfg, label, shape):
     torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
     plain_launches = tuple(a - b for a, b in zip(_train_counts(), launches))
-
-    def norm(g):
-        return torch.sqrt(sum(x.double().square().sum() for x in g.values())).item()
-
-    nk, np_ = norm(gk), norm(gp)
-    worst, worst_name = 0.0, ""
-    for name in gp:
-        scale = gp[name].abs().max().item()
-        r = (gk[name] - gp[name]).abs().max().item() / max(scale, 1e-30)
-        if r > worst:
-            worst, worst_name = r, name
-    lk, lp = lk.item(), lp.item()
     want = _train_want(cfg, 1)
-    print(f"train-grad {label} fp32 B {b} x S {s}: loss kernel {lk:.7f} plain {lp:.7f} "
-          f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {GRAD_TOL['loss']}); grad norm kernel "
-          f"{nk:.6f} plain {np_:.6f} (rel {abs(nk - np_) / np_:.2e}, tol {GRAD_TOL['norm']}); "
-          f"worst leaf max|diff| / max|grad| {worst:.2e} at {worst_name} (tol "
-          f"{GRAD_TOL['leaf']}); {len(gp)} leaves")
+    _gate_grads(torch, f"train-grad {label} fp32 B {b} x S {s}", (lk, gk), (lp, gp))
     print(f"train-grad {label} fp32: loss + grads {t_kernel:.2f} s kernel path, {t_plain:.2f} s "
           f"plain path; launches {COUNTS} {launches} (expected {want}; plain path "
           f"{plain_launches}); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    if not (abs(lk - lp) <= GRAD_TOL["loss"] * abs(lp) and abs(nk - np_) <= GRAD_TOL["norm"] * np_
-            and worst <= GRAD_TOL["leaf"] and math.isfinite(nk)):
-        _fail(f"train-grad {label}: the kernel path's loss or gradients disagree with the "
-              f"plain path's")
     if launches != want or any(plain_launches):
         _fail(f"train-grad {label}: launches {launches} / {plain_launches}, expected {want} / "
               f"zeros")
@@ -2590,7 +2789,9 @@ def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None,
     of ``cfg``), with exact launch counts (each attention and Mamba layer's
     forward 2 a step under remat, its backward kernels once), falling finite
     losses, ms per step, tokens/s and peak memory (``before``: an earlier
-    run's, printed beside); then one more step traced.  Returns the run's
+    run's, printed beside); then one more step traced, its busy share
+    against the run's mean step after step 1 (the launcher's steps, each
+    with its batch's draw and copy).  Returns the run's
     launches (``COUNTS``), its steady seconds a step and the device bytes
     that the trained parameters, their AdamW state and a batch hold (what
     the card holds beyond what it held before the run)."""
@@ -2634,12 +2835,7 @@ def train_phase(torch, dev, cfg, label, run, *, steps=TRAIN_STEPS, before=None,
     batch = to_device(next(data), dev)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() - base
-    step(params, opt_state, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(params, opt_state, batch)
-    torch.cuda.synchronize()
-    busy = _profile_call(torch, time.perf_counter() - t0, lambda: step(params, opt_state, batch),
+    busy = _profile_call(torch, steady, lambda: step(params, opt_state, batch),
                          f"{label} train step", top=12,
                          also=("flash_fwd", "bwd_dq", "bwd_dkdv", "ssm_kernel", "ssm_bwd"))
     del params, opt_state, batch
@@ -2745,7 +2941,6 @@ def smoke_train_phase(torch, dev):
     launches (``COUNTS``)."""
     from repro_torch.config import InputShape
     from repro_torch.data import pipeline
-    from repro_torch.kernels import flash_attention as kf
     from repro_torch.models import registry
     from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_loop import make_train_step, param_tree, to_device
@@ -2777,12 +2972,7 @@ def smoke_train_phase(torch, dev):
             if not ok:
                 _fail(f"smoke-train {arch}: the card's loss disagrees with the CPU's")
         launches = counts[arch] = _train_counts()
-        # whisper: its encoder layers one flash call a step, its decoder
-        # layers two (self, cross); the others one a layer of their pattern
         want = _train_want(cfg, 2)
-        if cfg.encoder is not None:
-            flash = cfg.encoder.num_layers + 2 * cfg.num_layers
-            want = (2 * flash, 2 * kf.BWD_KERNELS * flash, 0, 0)
         print(f"smoke-train {arch}: launches {COUNTS} {launches} (expected {want})")
         if launches != want:
             _fail(f"smoke-train {arch}: launches {launches} != {want}")
@@ -3051,17 +3241,22 @@ def _second_call_ms(torch, call):
     return (time.perf_counter() - t0) * 1e3
 
 
-def _grad_gap(torch, got, want):
-    """(loss, norm, largest leaf) gaps of DTensor ``got`` = (loss, grads)
-    against plain ``want``: relative, and the largest absolute difference."""
+def _grad_gap(torch, got, want, skip=()):
+    """(loss, norm, largest leaf) gaps of ``got`` = (loss, grads) against
+    plain ``want``: relative, and the largest absolute difference.  ``got``'s
+    leaves may be DTensors (taken whole) or lie on another device; a leaf in
+    ``skip`` counts in the norms only."""
     (lg, gg), (lw, gw) = got, want
-    gg = {k: v.full_tensor() for k, v in gg.items()}
+    gg = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v).to(gw[k].device)
+          for k, v in gg.items()}
 
     def norm(g):
         return torch.sqrt(sum(x.double().square().sum() for x in g.values())).item()
 
     worst, name, diff = 0.0, "", 0.0
     for k in gw:
+        if k in skip:
+            continue
         d = (gg[k].float() - gw[k].float()).abs().max().item()
         r = d / max(gw[k].abs().max().item(), 1e-30)
         diff = max(diff, d)
@@ -3069,7 +3264,8 @@ def _grad_gap(torch, got, want):
             worst, name = r, k
     lg, lw, ng, nw = float(lg), float(lw), norm(gg), norm(gw)
     return {"loss": abs(lg - lw) / abs(lw), "norm": abs(ng - nw) / nw, "leaf": worst,
-            "leaf_name": name, "max_abs_diff": max(diff, abs(lg - lw)), "losses": (lg, lw)}
+            "leaf_name": name, "max_abs_diff": max(diff, abs(lg - lw)), "losses": (lg, lw),
+            "norms": (ng, nw)}
 
 
 def gspmd_phase(torch, dev, granite_step_s):
@@ -3684,8 +3880,10 @@ RING_ARCH = "h2o-danube-3-4b"
 # construction) would size the 8176-token group's experts at 7.5 GB each
 RING_CHECK_CAPACITY = 3.0
 # granite's fp32 self-consistency checks cut to 4 of 40 layers (the fp32
-# flash kernel runs on the FMA units: ~2.9 s a B 8 layer at 32768)
+# flash kernel runs on the FMA units: ~2.9 s a B 8 layer at 32768), and
+# decode_32k's B 8 check to 2 (its 4 took ~29 s of the script's time limit)
 LONG_CHECK_LAYERS = 4
+DECODE_32K_CHECK_LAYERS = 2
 # (shape, name, B, Sq, Skv, window): the flash forward at the long paths'
 # shapes; the ring's window over an 8192-token prompt, danube's D 120 and
 # Jamba's D 128
@@ -4037,7 +4235,7 @@ def decode_32k_phase(torch, dev):
     B DECODE_32K_B (the shape's 128 cut: 343.6 GB of KV cache): 8 prompts of
     32752 tokens in one prefill at max_seq 32768, then DECODE_STEPS decode
     steps, the last at position 32767 (``long_serve``); then the fp32
-    self-consistency at LONG_CHECK_LAYERS layers, B 8."""
+    self-consistency at DECODE_32K_CHECK_LAYERS layers, B 8."""
     import numpy as np
     from repro_torch.config import SHAPES, get_config
 
@@ -4047,8 +4245,8 @@ def decode_32k_phase(torch, dev):
     s = shape.seq_len
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (DECODE_32K_B, s - DECODE_STEPS))
     launches, r = long_serve(torch, dev, cfg, shape, f"{ARCH} decode_32k", prompt)
-    self_consistency(torch, dev, _fp32(cfg, num_layers=LONG_CHECK_LAYERS), shape,
-                     f"{ARCH} x{LONG_CHECK_LAYERS} layers decode_32k", b=DECODE_32K_B, s=s)
+    self_consistency(torch, dev, _fp32(cfg, num_layers=DECODE_32K_CHECK_LAYERS), shape,
+                     f"{ARCH} x{DECODE_32K_CHECK_LAYERS} layers decode_32k", b=DECODE_32K_B, s=s)
     print(f"phase decode_32k: {time.perf_counter() - t0:.1f} s")
     return launches, r
 
@@ -4061,40 +4259,52 @@ def train_4k_phase(torch, dev):
     exact launches, finite falling losses, one traced step).  The flash
     forward and backward at (8, 4096) are held and timed with the other
     training shapes (``flash_bwd_phase``)."""
-    from repro_torch.config import InputShape, get_config
-    from repro_torch.launch import roofline
+    from repro_torch.config import get_config
     from repro_torch.launch import train as launcher
 
     t0 = time.perf_counter()
     cfg = get_config(ARCH)
     s = TRAIN_4K_SEQ
-    for b in TRAIN_4K_BATCHES:
-        failure = None
+    b, (launches, res) = _fit_batch(torch, f"train_4k {ARCH}", TRAIN_4K_BATCHES, s, lambda b: (
+        train_phase(torch, dev, cfg, f"{ARCH} train_4k", lambda: launcher.main(
+            ["--arch", ARCH, "--steps", str(TRAIN_4K_STEPS), "--batch", str(b),
+             "--seq", str(s), "--device", dev.type]), steps=TRAIN_4K_STEPS, shape=(b, s))))
+    _train_bound(cfg, f"train_4k {ARCH}", (b, s), res)
+    print(f"phase train_4k: {time.perf_counter() - t0:.1f} s")
+    return launches, res
+
+
+def _fit_batch(torch, label, batches, s, attempt):
+    """The first batch of ``batches`` for which ``attempt(b)`` runs without
+    running out of device memory (each that does not printed): (b, its
+    result)."""
+    for b in batches:
         try:
-            launches, res = train_phase(
-                torch, dev, cfg, f"{ARCH} train_4k", lambda: launcher.main(
-                    ["--arch", ARCH, "--steps", str(TRAIN_4K_STEPS), "--batch", str(b),
-                     "--seq", str(s), "--device", dev.type]),
-                steps=TRAIN_4K_STEPS, shape=(b, s))
+            return b, attempt(b)
         except torch.OutOfMemoryError as e:
             failure = str(e).splitlines()[0]
-        if failure is None:
-            break
-        print(f"train_4k {ARCH} B {b} x S {s}: does not fit one card ({failure})")
+        print(f"{label} B {b} x S {s}: does not fit one card ({failure})")
         _free(torch)
-    else:
-        _fail(f"train_4k: no batch of {TRAIN_4K_BATCHES} fits")
+    _fail(f"{label}: no batch of {batches} fits")
+
+
+def _train_bound(cfg, label, shape, res):
+    """One train step of ``cfg`` at B x S ``shape`` as ``train_phase`` measured
+    it (``res``), beside launch/roofline.py's bound on one H100; the bound
+    must not exceed the measured step."""
+    from repro_torch.config import InputShape
+    from repro_torch.launch import roofline
+
+    b, s = shape
     busy = "not measured" if res["busy"] is None else f"{res['busy']:.3f}"
-    rec = roofline.analyze(cfg, InputShape("train_4k", s, b, "train"))
-    print(f"train_4k {ARCH}: chosen B {b} x S {s}; {res['step_s'] * 1e3:.1f} ms a step after "
+    rec = roofline.analyze(cfg, InputShape("train", s, b, "train"))
+    print(f"{label}: chosen B {b} x S {s}; {res['step_s'] * 1e3:.1f} ms a step after "
           f"step 1, {b * s / res['step_s']:.0f} tokens/s, peak {res['peak'] / 1e9:.2f} GB, busy "
           f"share {busy}; roofline bound {rec['bound_s'] * 1e3:.3f} ms ({rec['dominant']}: "
           f"compute {rec['compute_s'] * 1e3:.3f} ms, memory {rec['memory_s'] * 1e3:.3f} ms), "
           f"bound / measured {rec['bound_s'] / res['step_s']:.3f}")
     if not rec["bound_s"] <= res["step_s"]:
-        _fail(f"roofline train_4k: bound {rec['bound_s']} s above the measured {res['step_s']} s")
-    print(f"phase train_4k: {time.perf_counter() - t0:.1f} s")
-    return launches, res
+        _fail(f"roofline {label}: bound {rec['bound_s']} s above the measured {res['step_s']} s")
 
 
 def ring_cfgs():
@@ -4136,6 +4346,294 @@ def long_ring_phase(torch, dev, label, cfg):
     print(f"phase long_500k {label}: {time.perf_counter() - t0:.1f} s")
     return launches, r
 
+
+
+# --------------------------------------------------------------------------- #
+# phases 42-47: full-width training of whisper-large-v3, internvl2-1b and
+# xlstm-125m through launch/train.py, and the InferenceEngine at SERVE_B
+# --------------------------------------------------------------------------- #
+
+FULL_TRAIN_STEPS = 5
+# an xlstm-125m step walks 256 time steps of 12 recurrent layers in eager ops
+# (~4.6e5 device activities, host-bound: 15.4 s a step on an H100 80GB HBM3
+# at 700 W): 2 steps, the second the steady one
+XLSTM_TRAIN_STEPS = 2
+XLSTM_TRAIN_BATCHES = (8, 4, 2, 1)   # the largest that fits (the mLSTM saves its states)
+# xlstm has no hand kernel: its fp32 gradients are held card against CPU, at
+# full width cut to one mLSTM + sLSTM pair over 64 steps (the CPU's seconds)
+XLSTM_GRAD_LAYERS, XLSTM_GRAD_SHAPE = 2, (1, 64)
+# the sLSTM's h = o * c / n is unchanged by a constant added to every input
+# gate pre-activation (c and n both scale by its exp), so the gradient of the
+# input gate's bias (gi.b) is exactly 0: ~6e-11 of rounding on the CPU, where
+# the next smallest leaf's is ~1e-4 and the largest ~0.39.  Such a leaf has
+# no scale of its own; a leaf below XLSTM_ZERO of the largest on both sides
+# is held to that floor instead of to 1e-3 of its own largest
+XLSTM_ZERO = 1e-6
+# the B 8 engines (arch, max_seq, flash a prefill, decode a step)
+ENGINES_B8 = [(ARCH, MAX_SEQ), (ENCDEC, ENCDEC_SEQ), (VISION, MAX_SEQ)]
+# the fp32 row check: each engine's model cut to ROW_LAYERS layers (whisper
+# ROW_LAYERS + ROW_LAYERS), its SERVE_B rows in one call against each row
+# alone, last logits after the prefill and each decode step
+ROW_LAYERS = 4
+BATCH_ROW_TOL = 1e-3
+
+
+def _train_seq(arch):
+    return VISION_TRAIN_SEQ if arch == VISION else TRAIN_SHAPE[1]
+
+
+def full_train_phase(torch, dev, arch, ckdir):
+    """Phases 42-43: full-width ``arch`` (whisper-large-v3, internvl2-1b):
+    the fp32 gradients at B 1 through the hand kernels against the plain
+    path (GRAD_TOL), then FULL_TRAIN_STEPS bf16 steps through
+    ``launch/train.py``'s main at B 8 (``train_phase``'s gates) writing
+    ``--checkpoint``, and the roofline's bound beside the step.  Returns the
+    launches, ``train_phase``'s numbers and the checkpoint's path."""
+    from repro_torch.config import get_config
+    from repro_torch.launch import train as launcher
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    b, s = TRAIN_SHAPE[0], _train_seq(arch)
+    print(f"train {arch}: {cfg.param_count() / 1e9:.3f} B parameters, {_flash_calls(cfg)} "
+          f"flash calls a forward pass")
+    train_grad_phase(torch, dev, cfg, arch, (1, s))
+    path = str(Path(ckdir) / f"{arch}.npz")
+    launches, res = train_phase(torch, dev, cfg, arch, lambda: launcher.main(
+        ["--arch", arch, "--steps", str(FULL_TRAIN_STEPS), "--batch", str(b), "--seq", str(s),
+         "--device", dev.type, "--checkpoint", path]), steps=FULL_TRAIN_STEPS, shape=(b, s))
+    _train_bound(cfg, f"train {arch}", (b, s), res)
+    print(f"phase train {arch}: {time.perf_counter() - t0:.1f} s; checkpoint "
+          f"{Path(path).stat().st_size / 1e9:.3f} GB")
+    return launches, res, path
+
+
+def xlstm_grad_phase(torch, dev):
+    """xlstm-125m in fp32 cut to XLSTM_GRAD_LAYERS layers: the loss and every
+    leaf's gradient on the card against the CPU from one set of weights
+    (GRAD_TOL); no hand kernel is on its path."""
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import registry
+    from repro_torch.training.train_loop import to_device, value_and_grad
+
+    cfg = dataclasses.replace(get_config(XLSTM), num_layers=XLSTM_GRAD_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    b, s = XLSTM_GRAD_SHAPE
+    card = registry.build(cfg, max_seq=s, device=dev)
+    host = registry.build(cfg, max_seq=s, device="cpu")
+    model = card.init(torch.Generator(device=dev).manual_seed(0))
+    ref = host.empty()
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, assign=True)
+    batch = next(pipeline.batches(cfg, InputShape("train", s, b, "train")))
+    t0 = time.perf_counter()
+    lc, _, gc = value_and_grad(card, model, to_device(batch, dev))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lh, _, gh = value_and_grad(host, ref, to_device(batch, torch.device("cpu")))
+    t_host = time.perf_counter() - t0
+    _gate_grads(torch, f"train-grad {XLSTM} x{cfg.num_layers} ({cfg.layer_pattern}) fp32 B {b} "
+                f"x S {s}", (lc.cpu(), gc), (lh, gh), names=("card", "CPU"), zero=XLSTM_ZERO)
+    print(f"train-grad {XLSTM} fp32: loss + grads {t_card:.2f} s on the card, {t_host:.2f} s "
+          f"on the CPU")
+    del model, ref, gc, gh
+    _free(torch)
+
+
+def xlstm_train_phase(torch, dev):
+    """Phase 44: xlstm-125m at full width, the card's fp32 gradients against
+    the CPU's, then XLSTM_TRAIN_STEPS bf16 steps through ``launch/train.py``'s
+    main at the largest batch of XLSTM_TRAIN_BATCHES that fits (each that
+    does not printed), no hand-kernel launch; the roofline's bound beside."""
+    from repro_torch.config import get_config
+    from repro_torch.launch import train as launcher
+
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM)
+    xlstm_grad_phase(torch, dev)
+    s = TRAIN_SHAPE[1]
+    b, (_, res) = _fit_batch(torch, f"train {XLSTM}", XLSTM_TRAIN_BATCHES, s, lambda b: (
+        train_phase(torch, dev, cfg, XLSTM, lambda: launcher.main(
+            ["--arch", XLSTM, "--steps", str(XLSTM_TRAIN_STEPS), "--batch", str(b),
+             "--seq", str(s), "--device", dev.type]), steps=XLSTM_TRAIN_STEPS, shape=(b, s))))
+    _train_bound(cfg, f"train {XLSTM}", (b, s), res)
+    print(f"phase train {XLSTM}: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def engine_b8_phase(torch, arch, max_seq):
+    """Phase 45: the bf16 full-width InferenceEngine built for SERVE_B rows
+    (``engine_phase``): cold start with its warm-up at the B 8 spec,
+    REQUESTS requests of 8 different prompts (and extras), the served tokens
+    against engine.generate's, rows not all equal, restore and the first
+    request again, exact launches (a B 8 request launches what a B 1 request
+    does), one traced request; restore against cold start printed."""
+    from repro_torch.config import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    extras = None if cfg.encoder is None and cfg.vision is None else \
+        _extras(torch, cfg, SERVE_B)[1]
+    out = engine_phase(torch, arch, max_seq=max_seq, launches=_serve_calls(cfg), extras=extras,
+                       zero_tail=cfg.encoder is not None, designs=False, restore_gate=False,
+                       batch=SERVE_B)
+    _free(torch)
+    print(f"phase engine {arch} B {SERVE_B}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _row_cfg(arch):
+    """``arch`` in fp32 cut to ROW_LAYERS layers (an encoder too)."""
+    from repro_torch.config import get_config
+
+    cfg = get_config(arch)
+    cut = dict(num_layers=ROW_LAYERS, dtype="float32", param_dtype="float32")
+    if cfg.encoder is not None:
+        cut["encoder"] = dataclasses.replace(cfg.encoder, num_layers=ROW_LAYERS)
+    return dataclasses.replace(cfg, **cut)
+
+
+def batch_rows_phase(torch, dev, arch, max_seq):
+    """Phase 46: row independence at SERVE_B.  ``arch`` in fp32 cut to
+    ROW_LAYERS layers: SERVE_B different prompts of max_seq - DECODE_STEPS
+    tokens (and extras) in one prefill and DECODE_STEPS greedy decode steps,
+    against each row's prompt alone (B 1) fed the same tokens; the last
+    logits after the prefill and after each step within BATCH_ROW_TOL.  The
+    gate must refuse the B 8 logits with rows 0 and 1 swapped."""
+    from repro_torch.models import registry
+
+    cfg = _row_cfg(arch)
+    bundle = registry.build(cfg, max_seq=max_seq, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = bundle.init(gen)
+    prompt = max_seq - DECODE_STEPS
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_B, prompt), generator=gen,
+                                     device=dev)}
+    if cfg.encoder is not None or cfg.vision is not None:
+        batch.update(_extras(torch, cfg, SERVE_B)[0](gen))
+
+    def run(inputs, fed=None):
+        """(B, 1 + DECODE_STEPS, vocab) last logits and the tokens fed."""
+        logits, caches, pos = bundle.prefill(model, inputs)
+        out, toks = [logits], []
+        for i in range(DECODE_STEPS):
+            tok = logits.argmax(-1) if fed is None else fed[:, i]
+            toks.append(tok)
+            logits, caches = bundle.decode_step(model, caches, tok, pos + i)
+            out.append(logits)
+        return torch.stack(out, dim=1), torch.stack(toks, dim=1)
+
+    with torch.inference_mode():
+        wide, fed = run(batch)
+        narrow = torch.cat([run({k: v[r:r + 1] for k, v in batch.items()}, fed[r:r + 1])[0]
+                            for r in range(SERVE_B)])
+    if not torch.isfinite(wide).all():
+        _fail(f"rows {arch}: B {SERVE_B} logits are not finite")
+    err, ok = _close(wide, narrow, BATCH_ROW_TOL)
+    per_row = [(wide[r] - narrow[r]).abs().max().item() for r in range(SERVE_B)]
+    swapped = wide[[1, 0, *range(2, SERVE_B)]]
+    bad_err, bad_ok = _close(swapped, narrow, BATCH_ROW_TOL)
+    print(f"rows {arch} x{cfg.num_layers} fp32, B {SERVE_B} x {prompt}-token prompts + "
+          f"{DECODE_STEPS} decode steps against each row alone: max |logit err| {err:.3e} "
+          f"(per row {', '.join(f'{e:.1e}' for e in per_row)}; logit scale "
+          f"{narrow.abs().max().item():.3f}) tol={BATCH_ROW_TOL} {'ok' if ok else 'FAIL'}; "
+          f"{len(set(map(tuple, fed.tolist())))} distinct rows of tokens")
+    print(f"gate rows {arch}, the B {SERVE_B} logits with rows 0 and 1 swapped: max |logit err| "
+          f"{bad_err:.3e} (refused {not bad_ok})")
+    if not ok:
+        _fail(f"rows {arch}: a row at B {SERVE_B} disagrees with the same prompt alone")
+    if bad_ok:
+        _fail(f"rows {arch}: the row gate passes the B {SERVE_B} logits with two rows swapped")
+    del model, wide, narrow
+    _free(torch)
+
+
+def trained_serve_phase(torch, arch, path):
+    """Phase 47: the checkpoint ``launch/train.py`` wrote for full-width
+    ``arch`` loaded into a SnapshotStore under the key of an engine built for
+    SERVE_B rows at the trained sequence length (whisper's learned position
+    table has that many rows), the engine cold-started from it and serving
+    SERVE_B prompts: its weights are the checkpoint's, its prefill logits
+    finite, not equal in every row and within MODEL_TOL of a prefill on the
+    checkpoint's weights loaded straight from the file, and its tokens those
+    of ``engine.generate`` on those weights, with exact launches.  whisper's
+    prompt fills its table, so its decode steps read past it (NaN, token 0)
+    and the tokens check the prefill's token alone; 5 steps at lr 3e-3 may
+    also give every row one argmax, so the rows are held apart by their
+    logits, not their tokens."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import InferenceEngine, SnapshotStore, generate
+    from repro_torch.training import checkpoint
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    seq = _train_seq(arch)
+    trained, extra = checkpoint.restore(path)
+    state = {k: v if torch.is_tensor(v) else torch.from_numpy(v) for k, v in trained.items()}
+    size = sum(_nbytes(v) for v in state.values())
+    print(f"serve-trained {arch}: checkpoint {extra} read, {size / 1e9:.3f} GB; before the "
+          f"store pins it, {_host_room()}")
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, cfg.vocab_size, (SERVE_B, seq)).astype(np.int32)
+    extras = _extras(torch, cfg, SERVE_B)[1](rng)
+    per_prefill, per_step = _serve_calls(cfg)
+    want_launches = (per_prefill, per_step * DECODE_STEPS)
+    with tempfile.TemporaryDirectory() as snapdir:
+        store = SnapshotStore(snapdir)
+        eng = InferenceEngine(arch, smoke=False, max_seq=seq, batch=SERVE_B, store=store,
+                              device="cuda")
+        dev = eng.device
+        store.save_params(eng.key, state)
+        bd = eng.cold_start(from_snapshot=True)
+        same = all(torch.equal(p.cpu(), state[k]) for k, p in eng.params.state_dict().items())
+        c = (kf.launches, kd.launches)
+        out, st = eng.serve(tokens, decode_steps=DECODE_STEPS, extras=extras)
+        got = (kf.launches - c[0], kd.launches - c[1])
+        served = _prefill_logits(torch, eng.bundle, eng.params, tokens, extras,
+                                 f"serve-trained {arch} engine")
+        eng.shutdown()
+    bundle = registry.build_arch(arch, smoke=False, max_seq=seq, device=dev)
+    model = bundle.empty()
+    model.load_state_dict({k: v.to(dev) for k, v in state.items()}, assign=True)
+    want, _ = generate(bundle, model, tokens, decode_steps=DECODE_STEPS, extras=extras)
+    fresh = _prefill_logits(torch, bundle, model, tokens, extras,
+                            f"serve-trained {arch} checkpoint")
+    err, close = _close(served, fresh, MODEL_TOL)
+    print(f"serve-trained {arch} B {SERVE_B} at {seq} tokens from the trained snapshot "
+          f"({bd}): weights equal the checkpoint's {same}; prefill {st.prefill_s * 1e3:.2f} ms, "
+          f"{st.decode_s / st.tokens * 1e3:.3f} ms a step; prefill logits against the "
+          f"checkpoint's max|diff| {err:.3e} (tol {MODEL_TOL}); first tokens "
+          f"{out[:, 0].tolist()}; tokens of row 0 {out[0].tolist()}, equal to generate's on the "
+          f"checkpoint {np.array_equal(out, want)}; launches flash, decode {got} (expected "
+          f"{want_launches})")
+    if not (same and close and np.array_equal(out, want)):
+        _fail(f"serve-trained {arch}: the served snapshot is not the trained checkpoint")
+    if got != want_launches:
+        _fail(f"serve-trained {arch}: launches {got} != {want_launches}")
+    del model, state, trained
+    _free(torch)
+    print(f"phase serve-trained {arch}: {time.perf_counter() - t0:.1f} s")
+
+
+def train_serve_phases(torch, dev):
+    """Phases 42-47 in their order; returns what the kernels line reads: the
+    training runs' launches and the B 8 engines' launches, by architecture."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckdir:
+        trained = {arch: full_train_phase(torch, dev, arch, ckdir) for arch in (ENCDEC, VISION)}
+        xlstm_train_phase(torch, dev)
+        engines = {arch: engine_b8_phase(torch, arch, max_seq) for arch, max_seq in ENGINES_B8}
+        for arch, max_seq in ENGINES_B8:
+            batch_rows_phase(torch, dev, arch, max_seq)
+        for arch in (ENCDEC, VISION):
+            trained_serve_phase(torch, arch, trained[arch][2])
+    print(f"phases 42-47 (train and serve at B {SERVE_B}): {time.perf_counter() - t0:.1f} s")
+    return {arch: t[0] for arch, t in trained.items()}, engines
 
 
 def main() -> int:
@@ -4228,6 +4726,7 @@ def main() -> int:
     p2_launches, _ = decode_32k_phase(torch, dev)
     p3_launches, _ = train_4k_phase(torch, dev)
     ring = {label: long_ring_phase(torch, dev, label, cfg)[0] for label, cfg in ring_cfgs()}
+    trained, engines = train_serve_phases(torch, dev)
     # a kernel on several main paths: each path's launches (counts set to 0
     # just before it, read just after) and its numbers at that path's shape.
     # whisper's prefill runs its 32 layers' flash calls at three shapes
@@ -4268,12 +4767,27 @@ def main() -> int:
                  ("train_4k", p3_launches[0], train_at("fwd", "granite", "train_4k")),
                  *((f"long_500k-{label}", ring[label][1],
                     long_at("flash_attention", shape, "ring_prefill"))
-                   for label, shape in ring_names)],
+                   for label, shape in ring_names),
+                 *((f"whisper-train-{name}", trained[ENCDEC][0] // 3,
+                    train_at("fwd", "whisper", f"train_{name}"))
+                   for name in ("encoder", "decoder", "cross")),
+                 ("internvl2-train", trained[VISION][0], train_at("fwd", "internvl2", "train")),
+                 ("granite-engine-b8", engines[ARCH]["flash_attention"],
+                  at("flash_attention", "granite", "prefill_b8")),
+                 *((f"whisper-engine-b8-{name}", engines[ENCDEC]["flash_attention"] // 3,
+                    at("flash_attention", "whisper", f"{name}_b8"))
+                   for name in ("encoder", "decoder", "cross")),
+                 ("internvl2-engine-b8", engines[VISION]["flash_attention"],
+                  at("flash_attention", "internvl2", "prefill_b8"))],
              "flash_attention_bwd": [
                  ("granite-train", train_launches[1], train_at("bwd", "granite", "train")),
                  ("forecaster-train", fc_train_launches[1],
                   train_at("bwd", "forecaster", "train")),
-                 ("train_4k", p3_launches[1], train_at("bwd", "granite", "train_4k"))],
+                 ("train_4k", p3_launches[1], train_at("bwd", "granite", "train_4k")),
+                 *((f"whisper-train-{name}", trained[ENCDEC][1] // 3,
+                    train_at("bwd", "whisper", f"train_{name}"))
+                   for name in ("encoder", "decoder", "cross")),
+                 ("internvl2-train", trained[VISION][1], train_at("bwd", "internvl2", "train"))],
              "ssm_scan": [
                  ("hybrid-serve", launches["ssm_scan"], timed["ssm_scan"]),
                  ("jamba-train", hybrid_train_launches[2], ssm_timed[("fwd", "jamba")]),
@@ -4292,7 +4806,13 @@ def main() -> int:
                  *served_paths("decode_attention", 2, ("decode", "decode_b8")),
                  ("decode_32k", p2_launches[2], long_at("decode_attention", "granite", "decode_32k")),
                  *((f"long_500k-{label}", ring[label][2], long_at("decode_attention", shape, "ring"))
-                   for label, shape in ring_names)],
+                   for label, shape in ring_names),
+                 ("granite-engine-b8", engines[ARCH]["decode_attention"],
+                  at("decode_attention", "granite", "decode_b8")),
+                 *((f"whisper-engine-b8-{name}", engines[ENCDEC]["decode_attention"] // 2,
+                    at("decode_attention", "whisper", f"{name}_b8")) for name in ("self", "cross")),
+                 ("internvl2-engine-b8", engines[VISION]["decode_attention"],
+                  at("decode_attention", "internvl2", "decode_b8"))],
              "cluster_step": [("sweep", launches["cluster_step"], timed["cluster_step"]),
                               ("gym", gym_launches, gym_timed)]}
     timed = {"flash_attention": at("flash_attention", "granite", "prefill"),

@@ -148,6 +148,32 @@ def test_batch_two_greedy_tokens_equal_the_jax_engine(tmp_path):
         teng.serve(_prompt(6), decode_steps=STEPS)
 
 
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-1b"])
+def test_batch_two_tokens_with_extras_equal_the_jax_engine(tmp_path, arch):
+    """The encoder-decoder and vision engines warmed for B 2: two different
+    prompts, each with its own frames or image embeds, in one request; each
+    row's greedy tokens equal the JAX engine's at B 2 (whisper's decode
+    steps past max_seq give 0 after the first token on both sides)."""
+    jeng = JaxEngine(arch, smoke=True, max_seq=MAX_SEQ, batch=2,
+                     store=JaxStore(str(tmp_path / "jax")))
+    jeng.cold_start()
+    store = SnapshotStore(str(tmp_path / "torch"))
+    teng = InferenceEngine(arch, smoke=True, max_seq=MAX_SEQ, batch=2, store=store,
+                           device="cpu")
+    store.save_params(teng.key, params_from_jax(jax.tree.map(np.asarray, jeng.params)))
+    teng.cold_start(from_snapshot=True)
+    (key, (shape, _)), = ((k, v) for k, v in teng._prefill_batch_spec().items()
+                          if k != "tokens")
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, teng.bundle.cfg.vocab_size, (2, MAX_SEQ)).astype(np.int32)
+    extras = {key: rng.standard_normal(shape).astype(np.float32)}
+    want, _ = jeng.serve(prompts, decode_steps=STEPS, extras=extras)
+    got, _ = teng.serve(prompts, decode_steps=STEPS, extras=extras)
+    assert got.shape == (2, STEPS)
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got[0], got[1])
+
+
 # --------------------------------------------------------------------------- #
 # jamba SMOKE: the hybrid family (attention + Mamba layers, MoE FFNs)
 # --------------------------------------------------------------------------- #

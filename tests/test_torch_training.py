@@ -136,7 +136,8 @@ def test_an_unreached_leaf_gets_jax_zero_gradient():
         np.testing.assert_allclose(g.numpy(), want[name].numpy(), err_msg=name, **GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", ["granite3_2b", "whisper_large_v3"])
+@pytest.mark.parametrize("arch", ["granite3_2b", "whisper_large_v3", "internvl2_1b",
+                                  "xlstm_125m"])
 def test_three_train_steps_match_jax(arch):
     jb, jparams, tb, model = _bundles(arch)
     opt_cfg = dict(lr=3e-3, warmup_steps=1, total_steps=3, eps=ADAM_EPS)
@@ -288,4 +289,36 @@ def test_train_checkpoint_serve_loop(tmp_path):
     out, stats = e.serve(tokens, decode_steps=4)
     assert out.shape == (1, 4) and stats.decode_s > 0
     want, _ = generate(bundle, res.final_params, tokens, decode_steps=4)
+    np.testing.assert_array_equal(out, want)
+
+
+def test_launcher_checkpoint_serves_at_batch_two(tmp_path, capsys):
+    """The launcher trains SMOKE whisper and writes ``--checkpoint``; an
+    engine warmed for B 2, restored from that file through its
+    ``SnapshotStore``, serves the tokens ``generate`` gives on the trained
+    parameters read straight from the checkpoint."""
+    from repro_torch.serving.engine import InferenceEngine, SnapshotStore, generate
+
+    arch, seq = "whisper-large-v3", 32
+    path = str(tmp_path / "model.npz")
+    tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+                  "--batch", "2", "--seq", str(seq), "--checkpoint", path])
+    assert f"checkpoint: {path}" in capsys.readouterr().out
+    trained, _ = checkpoint.restore(path)
+    store = SnapshotStore(str(tmp_path / "snaps"))
+    eng = InferenceEngine(arch, smoke=True, max_seq=seq, batch=2, store=store, device="cpu")
+    store.save_params(eng.key, {k: torch.from_numpy(v) for k, v in trained.items()})
+    eng.cold_start(from_snapshot=True)
+    for name, p in eng.params.state_dict().items():
+        np.testing.assert_array_equal(p.numpy(), trained[name])
+    bundle = tregistry.build_arch(arch, smoke=True, max_seq=seq, device="cpu")
+    model = bundle.empty()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in trained.items()}, assign=True)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, bundle.cfg.vocab_size, (2, seq)).astype(np.int32)
+    frames = rng.standard_normal((2, bundle.cfg.encoder.num_frames,
+                                  bundle.cfg.encoder.d_model)).astype(np.float32)
+    out, _ = eng.serve(tokens, decode_steps=4, extras={"frames": frames})
+    want, _ = generate(bundle, model, tokens, decode_steps=4, extras={"frames": frames})
+    assert out.shape == (2, 4)
     np.testing.assert_array_equal(out, want)
