@@ -898,8 +898,7 @@ def engine_phase(torch, arch=ARCH, *, max_seq=MAX_SEQ, launches=None, extras=Non
         kf.launches = kd.launches = 0               # the main path starts here
         c = counts()
         bd = eng.cold_start()
-        print(f"engine {arch} cold_start: {bd} (nvcc build {eng.build_s:.2f} s, set-up), "
-              f"weights {eng.package_bytes() / 1e9:.3f} GB bf16")
+        print(f"engine {arch} cold_start: {bd}, weights {eng.package_bytes() / 1e9:.3f} GB bf16")
         expect("cold_start (warm-up)", c, per_prefill, per_step)
         outs, prefills = [], []
         for i in range(REQUESTS):

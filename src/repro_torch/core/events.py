@@ -31,7 +31,9 @@ kernel emitted it.  Unlike ``wall``, ``node`` is part of run identity —
 normalize() keeps it, so the sim-vs-fleet gate also checks that both
 drivers routed every request to the same node.  The version-1 reader
 path still works: files without topology fields are valid version-2
-streams, and the reader accepts either header version.
+streams, and the reader accepts either header version.  Version 3 adds
+the ``span`` kind: a named stretch of the program's own work on
+``time.perf_counter_ns``, wall-only like ``wall`` (normalize() drops it).
 
 Event vocabulary:
 
@@ -55,10 +57,18 @@ Event vocabulary:
                / ladder death, "evict" = memory pressure) (kernel)
   offload      a topology router sent the request to a node; carries the
                QoS class and the network RTT/transfer cost paid (topology)
+  span         a stretch of the program's own work (``router.invoke``,
+               ``engine.deps_load``, ``engine.decode_step``, ...): ``name``,
+               ``start_ns`` / ``end_ns`` on ``time.perf_counter_ns`` and an
+               optional ``n`` of integer counters.  It is emitted when it
+               ends and takes the log's last ``t`` (0.0 in an empty log), so
+               it never breaks the non-decreasing ``t`` rule; a parent is
+               emitted after its children (engine, router, pool)
 """
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import dataclass
 from typing import (Any, Callable, Counter, Dict, Iterable, List, Mapping,
                     Optional, Sequence)
@@ -66,9 +76,10 @@ from typing import (Any, Callable, Counter, Dict, Iterable, List, Mapping,
 from repro_torch.core.lifecycle import Breakdown, WarmthTier
 
 SCHEMA_NAME = "repro.events"
-SCHEMA_VERSION = 2
-# older streams this reader still accepts (v1 = v2 minus topology fields)
-SUPPORTED_VERSIONS = (1, 2)
+SCHEMA_VERSION = 3
+# older streams this reader still accepts (v1 = v2 minus topology fields,
+# v2 = v3 minus spans)
+SUPPORTED_VERSIONS = (1, 2, 3)
 
 TIER_NAMES = tuple(t.name.lower() for t in WarmthTier)
 
@@ -92,7 +103,12 @@ EVENT_SCHEMA: Dict[str, Dict[str, type]] = {
     "expire": {"cid": int, "function": str, "tier": str, "reason": str},
     "offload": {"function": str, "qos_class": str, "src": str, "dst": str,
                 "rtt_s": float, "xfer_s": float},
+    "span": {"name": str, "start_ns": int, "end_ns": int},
 }
+# optional per-kind fields: a span's integer counters
+OPTIONAL_FIELDS: Dict[str, Sequence[str]] = {"span": ("n",)}
+# kinds that are wall-only as a whole: normalize() drops them
+WALL_KINDS = ("span",)
 
 # fields that legitimately differ between modeled and measured runs of the
 # same scenario — stripped by normalize() before identity comparison
@@ -206,6 +222,12 @@ class EventLog:
         self.emit("offload", t, function=function, qos_class=qos_class,
                   src=src, dst=dst, rtt_s=rtt_s, xfer_s=xfer_s)
 
+    def span(self, name: str, start_ns: int, end_ns: int, **n: int) -> None:
+        """A finished span, stamped with the log's last ``t``."""
+        t = self.events[-1]["t"] if self.events else 0.0
+        self.emit("span", t, name=name, start_ns=start_ns, end_ns=end_ns,
+                  **({"n": n} if n else {}))
+
     # ------------------------------------------------------------------ #
     def counts(self) -> Dict[str, int]:
         c: Counter[str] = Counter()
@@ -248,13 +270,61 @@ class EventLog:
         return log
 
 
+class _Span:
+    """A span in progress: read at ``__enter__``, emitted at ``__exit__``
+    with the counters ``count`` gathered."""
+
+    __slots__ = ("log", "name", "n", "start_ns")
+
+    def __init__(self, log: EventLog, name: str, n: Dict[str, int]):
+        self.log, self.name, self.n = log, name, n
+
+    def __enter__(self) -> "_Span":
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.log.span(self.name, self.start_ns, time.perf_counter_ns(), **self.n)
+
+    def count(self, **n: int) -> None:
+        self.n.update(n)
+
+
+class _NoSpan:
+    """What :func:`span` gives without a log: nothing is read or kept."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+    def count(self, **n: int) -> None:
+        return None
+
+
+NO_SPAN = _NoSpan()
+
+
+def span(events: Optional[EventLog], name: str, **n: int):
+    """``with span(events, "router.place") as sp: ...; sp.count(evicted=k)``
+    emits one span into ``events``; with ``events=None`` it is the shared
+    no-op context."""
+    if events is None:
+        return NO_SPAN
+    return _Span(events, name, n)
+
+
 # --------------------------------------------------------------------------- #
 # validation
 # --------------------------------------------------------------------------- #
 def validate_events(events: Iterable[Mapping[str, Any]]) -> List[str]:
     """Schema-check an event stream; returns a list of problems (empty =
     valid).  Checks kinds, per-kind required fields and types, tier-name
-    vocabulary, and non-decreasing virtual timestamps."""
+    vocabulary, a span's integer clock readings and counters, and
+    non-decreasing virtual timestamps."""
     problems: List[str] = []
     last_t = float("-inf")
     for i, ev in enumerate(events):
@@ -279,6 +349,9 @@ def validate_events(events: Iterable[Mapping[str, Any]]) -> List[str]:
                 if not isinstance(ev[fname], (int, float)):
                     problems.append(
                         f"{where} ({kind}): {fname} is not numeric")
+            elif ftype is int:
+                if not isinstance(ev[fname], int) or isinstance(ev[fname], bool):
+                    problems.append(f"{where} ({kind}): {fname} is not int")
             elif not isinstance(ev[fname], ftype):
                 problems.append(
                     f"{where} ({kind}): {fname} is not {ftype.__name__}")
@@ -288,11 +361,27 @@ def validate_events(events: Iterable[Mapping[str, Any]]) -> List[str]:
                     f"{where} ({kind}): bad tier name {ev.get(tf)!r}")
         if "node" in ev and not isinstance(ev["node"], str):
             problems.append(f"{where} ({kind}): node is not a string")
+        if kind == "span":
+            problems.extend(_span_problems(ev, where))
         extra = (set(ev) - set(spec) - {"t", "kind"} - set(WALL_FIELDS)
-                 - set(ANNOTATION_FIELDS))
+                 - set(ANNOTATION_FIELDS) - set(OPTIONAL_FIELDS.get(kind, ())))
         if extra:
             problems.append(
                 f"{where} ({kind}): unexpected fields {sorted(extra)}")
+    return problems
+
+
+def _span_problems(ev: Mapping[str, Any], where: str) -> List[str]:
+    problems = []
+    a, b = ev.get("start_ns"), ev.get("end_ns")
+    if isinstance(a, int) and isinstance(b, int) and b < a:
+        problems.append(f"{where} (span): end_ns {b} before start_ns {a}")
+    n = ev.get("n", {})
+    if not isinstance(n, dict):
+        problems.append(f"{where} (span): n is not a dict")
+    elif not all(isinstance(k, str) and isinstance(v, int) and not isinstance(v, bool)
+                 for k, v in n.items()):
+        problems.append(f"{where} (span): n holds a non-integer counter")
     return problems
 
 
@@ -307,12 +396,12 @@ def _canon_key(ev: Mapping[str, Any]):
 
 
 def normalize(events: Iterable[Mapping[str, Any]]) -> List[Dict[str, Any]]:
-    """Canonical form for identity comparison: strip wall-clock fields and
-    impose a deterministic order on events sharing one virtual timestamp
-    (concurrent events at an instant have no meaningful relative order —
-    the two drivers may legally interleave them differently)."""
+    """Canonical form for identity comparison: drop spans, strip wall-clock
+    fields and impose a deterministic order on events sharing one virtual
+    timestamp (concurrent events at an instant have no meaningful relative
+    order — the two drivers may legally interleave them differently)."""
     out = [{k: v for k, v in ev.items() if k not in WALL_FIELDS}
-           for ev in events]
+           for ev in events if ev.get("kind") not in WALL_KINDS]
     out.sort(key=_canon_key)
     return out
 

@@ -124,7 +124,8 @@ def run(scenario: Union[str, Scenario], driver: str = "sim", *,
 
 def _run_engine(sc: Scenario, trace, cost_model,
                 events: Optional[EventLog] = None, device="cuda") -> QoSLedger:
-    """Real engines on ``device``, on a scaled wall clock."""
+    """Real engines on ``device``, on a scaled wall clock; ``events`` also
+    reaches the backend, so the log carries the pool's and engines' spans."""
     import time as _time
 
     from repro_torch.fleet import (EngineBackend, EngineProfile, FleetRunner,
@@ -133,7 +134,7 @@ def _run_engine(sc: Scenario, trace, cost_model,
 
     es = sc.engine
     store = SnapshotStore() if es.snapshots else None
-    backend = EngineBackend(store=store, device=device, profiles={
+    backend = EngineBackend(store=store, device=device, events=events, profiles={
         name: EngineProfile(arch=es.arch, max_seq=es.max_seq,
                             batch=es.batch, decode_steps=es.decode_steps)
         for name in trace.functions

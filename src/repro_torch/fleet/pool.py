@@ -37,7 +37,7 @@ import numpy as np
 
 from repro_torch.core.cluster import ClusterState, scale_breakdown
 from repro_torch.core.costmodel import CostModel
-from repro_torch.core.events import EventLog
+from repro_torch.core.events import EventLog, span
 from repro_torch.core.lifecycle import (Breakdown, Container, ContainerState,
                                         FunctionSpec, WarmthTier)
 from repro_torch.core.metrics import QoSLedger
@@ -181,11 +181,12 @@ class EngineBackend(ExecutionBackend):
     """
 
     def __init__(self, store=None, profiles: Optional[Dict[str, EngineProfile]] = None,
-                 device="cuda"):
+                 device="cuda", events: Optional[EventLog] = None):
         from repro_torch.device import resolve_device
         self.store = store
         self.profiles: Dict[str, EngineProfile] = profiles or {}
         self.device = resolve_device(device)
+        self.events = events          # handed to each engine, for its spans
 
     def profile(self, function: str) -> EngineProfile:
         prof = self.profiles.get(function)
@@ -199,7 +200,8 @@ class EngineBackend(ExecutionBackend):
         prof = self.profile(replica.function)
         engine = InferenceEngine(prof.arch, smoke=prof.smoke,
                                  max_seq=prof.max_seq, batch=prof.batch,
-                                 store=self.store, device=self.device)
+                                 store=self.store, device=self.device,
+                                 events=self.events)
         replica.engine = engine
         return engine.cold_start(from_snapshot=from_snapshot)
 
@@ -292,7 +294,7 @@ class EnginePool:
             on_destroy=self._teardown, on_demote=self._demote_replica,
             tier_footprint_frac=tier_footprint_frac, events=events)
         self.replicas: Dict[int, Replica] = {}
-        self.phase_log: List[Breakdown] = []
+        self.events = events
 
     def _teardown(self, container: Container) -> None:
         replica = self.replicas.pop(container.id, None)
@@ -361,17 +363,17 @@ class EnginePool:
         if tier is None:
             tier = (WarmthTier.SNAPSHOT_READY if from_snapshot
                     else WarmthTier.DEAD)
-        c = self.state.admit(function, worker, now,
-                             has_snapshot=tier == WarmthTier.SNAPSHOT_READY,
-                             tier=tier)
-        replica = Replica(container=c, spec=self.state.functions[function])
-        self.replicas[c.id] = replica
-        bd = self.backend.provision(
-            replica, tier=tier,
-            concurrent_colds=self.state.provisioning_on(worker) - 1,
-            deps_fraction=deps_fraction, from_pause_pool=from_pause_pool,
-            speed=self.state.speed(worker))
-        self.phase_log.append(bd)
+        with span(self.events, "pool.start_replica"):
+            c = self.state.admit(function, worker, now,
+                                 has_snapshot=tier == WarmthTier.SNAPSHOT_READY,
+                                 tier=tier)
+            replica = Replica(container=c, spec=self.state.functions[function])
+            self.replicas[c.id] = replica
+            bd = self.backend.provision(
+                replica, tier=tier,
+                concurrent_colds=self.state.provisioning_on(worker) - 1,
+                deps_fraction=deps_fraction, from_pause_pool=from_pause_pool,
+                speed=self.state.speed(worker))
         return replica, bd
 
     def promote_replica(self, replica: Replica, now: float) -> Breakdown:
@@ -382,10 +384,8 @@ class EnginePool:
         worker = c.worker
         concurrent = self.state.provisioning_on(worker)
         tier = self.state.promote_begin(c, now)
-        bd = self.backend.promote(replica, tier, concurrent_colds=concurrent,
-                                  speed=self.state.speed(worker))
-        self.phase_log.append(bd)
-        return bd
+        return self.backend.promote(replica, tier, concurrent_colds=concurrent,
+                                    speed=self.state.speed(worker))
 
     def release(self, replica: Replica) -> None:
         """Destroy a replica (idle accounting + memory + engine teardown all

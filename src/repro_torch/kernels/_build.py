@@ -34,6 +34,7 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"cluster_step": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+compiled = 0          # libraries this process has compiled with nvcc
 
 
 def nvcc() -> str:
@@ -74,6 +75,7 @@ def build() -> float:
 
 
 def _build_locked(names: Sequence[str]) -> float:
+    global compiled
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return 0.0
@@ -94,6 +96,7 @@ def _build_locked(names: Sequence[str]) -> float:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{output}")
             continue
         os.replace(tmp, library_path(name))
+        compiled += 1
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0

@@ -11,7 +11,8 @@ in the same four measured phases as the JAX engine:
   code_init      loading the hand-kernel libraries + one warm-up prefill and
                  one warm-up decode at the engine's shapes (there is no XLA
                  compile; the ``nvcc`` build is set-up, cached on disk by
-                 source hash and timed apart as ``build_s``)
+                 source hash, and its check at each cold start is the
+                 ``engine.build_check`` span, outside every phase)
   execute        the requests
 
 Mitigation paths: snapshot/restore (a ``torch.save`` state dict with a
@@ -22,9 +23,22 @@ restore skips the compile), scale-to-zero (``shutdown()``) and fusion:
 graph (one capture for the chain, where the reference compiles it once).
 
 Every phase ends in ``torch.cuda.synchronize()`` before its clock stops.
+
+With an :class:`~repro_torch.core.events.EventLog` (``events=``), a cold
+start and a request emit spans on ``time.perf_counter_ns``.
+``engine.cold_start`` holds ``engine.build_check`` (counter ``built``: the
+libraries ``nvcc`` compiled) and one span a phase, each the ``Breakdown``'s
+own reading: ``engine.provision``, ``engine.runtime_init``,
+``engine.deps_load`` (counters ``bytes``, on the card what the phase left
+allocated, and ``segments``, the caching allocator's new segments) and
+``engine.code_init`` (holding ``engine.libraries`` and ``engine.warmup``).
+A request emits ``engine.h2d``, ``engine.prefill`` (to its synchronise) and,
+a step, ``engine.readback`` and ``engine.decode_step`` (host time: no
+synchronise is added).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 import time
@@ -34,6 +48,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.events import EventLog, span
 from repro_torch.core.lifecycle import Breakdown, Phase
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, decode_attention, flash_attention, ssm_scan
@@ -46,26 +61,37 @@ def _sync(device: torch.device) -> None:
 
 
 class _Timer:
-    def __init__(self, device: torch.device):
+    """One cold start's phases, each read on ``time.perf_counter_ns`` from
+    its start to the synchronise that ends it.  The ``Breakdown`` and the
+    phases' spans come from the same readings."""
+
+    def __init__(self, device: torch.device, events: Optional[EventLog]):
         self.device = device
+        self.events = events
         self.seconds: Dict[Phase, float] = {}
 
-    def phase(self, p: Phase):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *a):
-                _sync(timer.device)
-                timer.seconds[p] = timer.seconds.get(p, 0.0) + (
-                    time.perf_counter() - self.t0)
-
-        return _Ctx()
+    @contextlib.contextmanager
+    def phase(self, p: Phase, counters: Optional[Callable[[], Dict[str, int]]] = None):
+        """Time phase ``p``; ``counters`` (read after the phase's clock
+        stops, with a log only) gives its span's counters."""
+        t0 = time.perf_counter_ns()
+        yield
+        _sync(self.device)
+        t1 = time.perf_counter_ns()
+        self.seconds[p] = self.seconds.get(p, 0.0) + (t1 - t0) / 1e9
+        if self.events is not None:
+            self.events.span(f"engine.{p.value}", t0, t1,
+                             **(counters() if counters is not None else {}))
 
     def breakdown(self) -> Breakdown:
         return Breakdown(dict(self.seconds))
+
+
+def _allocator(device: torch.device) -> Tuple[int, int]:
+    """(bytes allocated now, segments allocated so far) of the caching
+    allocator on ``device``: one read of its statistics (~0.25 ms)."""
+    stats = torch.cuda.memory_stats(device)
+    return stats.get("allocated_bytes.all.current", 0), stats.get("segment.all.allocated", 0)
 
 
 # --------------------------------------------------------------------------- #
@@ -181,7 +207,8 @@ class InferenceEngine:
     def __init__(self, arch: str, *, smoke: bool = True, max_seq: int = 128,
                  batch: int = 1, store: Optional[SnapshotStore] = None,
                  runtime: str = "python-jit", seed: int = 0,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 events: Optional[EventLog] = None):
         self.device = resolve_device(device)
         self.arch = arch
         self.smoke = smoke
@@ -193,9 +220,7 @@ class InferenceEngine:
         self.params = None
         self.bundle = None
         self.warm = False
-        self.build_s = 0.0
-        self.last_breakdown: Optional[Breakdown] = None
-        self.last_used = 0.0
+        self.events = events
 
     # ------------------------------------------------------------------ #
     @property
@@ -232,37 +257,53 @@ class InferenceEngine:
     @torch.no_grad()
     def cold_start(self, *, from_snapshot: bool = False) -> Breakdown:
         """Full measured startup.  Returns the per-phase breakdown."""
-        if self.device.type == "cuda":
-            self.build_s = _build.build()
-        t = _Timer(self.device)
-        with t.phase(Phase.PROVISION):
-            if self.device.type == "cuda":
-                torch.empty(0, device=self.device)   # creates the CUDA context
-        with t.phase(Phase.RUNTIME_INIT):
-            self.bundle = registry.build_arch(self.arch, smoke=self.smoke,
-                                              max_seq=self.max_seq, device=self.device)
-        use_snap = (from_snapshot and self.store is not None
-                    and self.store.has_params(self.key))
-        with t.phase(Phase.DEPS_LOAD):
-            if use_snap:
-                state = self.store.load_params(self.key, self.device)  # copy in flight
-                self.params = self.bundle.empty()
-                self.params.load_state_dict(state, assign=True)
-            else:
-                gen = torch.Generator(device=self.device).manual_seed(self.seed)
-                self.params = self.bundle.init(gen)
-        with t.phase(Phase.CODE_INIT):
-            exe = None if self.store is None else self.store.get_executable(self.key)
-            if exe is None:
-                libs = _kernel_libraries(self.device)
-                self._warm_up()
-                if self.store is not None:
-                    self.store.put_executable(self.key, libs)
-        if self.store is not None and not self.store.has_params(self.key):
-            self.store.save_params(self.key, self.params.state_dict())
-        self.warm = True
-        self.last_breakdown = t.breakdown()
-        return self.last_breakdown
+        ev, cuda = self.events, self.device.type == "cuda"
+        with span(ev, "engine.cold_start"):
+            if cuda:
+                with span(ev, "engine.build_check") as sp:
+                    built = _build.compiled
+                    _build.build()
+                    sp.count(built=_build.compiled - built)
+            t = _Timer(self.device, ev)
+            with t.phase(Phase.PROVISION):
+                if cuda:
+                    torch.empty(0, device=self.device)   # creates the CUDA context
+            with t.phase(Phase.RUNTIME_INIT):
+                self.bundle = registry.build_arch(self.arch, smoke=self.smoke,
+                                                  max_seq=self.max_seq, device=self.device)
+            use_snap = (from_snapshot and self.store is not None
+                        and self.store.has_params(self.key))
+            before = _allocator(self.device) if ev is not None and cuda else (0, 0)
+
+            def placed() -> Dict[str, int]:
+                """The bytes the phase left allocated on the card and the
+                allocator's new segments; on the CPU the weights' bytes."""
+                if not cuda:
+                    return {"bytes": self.package_bytes()}
+                now = _allocator(self.device)
+                return {"bytes": now[0] - before[0], "segments": now[1] - before[1]}
+
+            with t.phase(Phase.DEPS_LOAD, placed):
+                if use_snap:
+                    state = self.store.load_params(self.key, self.device)  # copy in flight
+                    self.params = self.bundle.empty()
+                    self.params.load_state_dict(state, assign=True)
+                else:
+                    gen = torch.Generator(device=self.device).manual_seed(self.seed)
+                    self.params = self.bundle.init(gen)
+            with t.phase(Phase.CODE_INIT):
+                exe = None if self.store is None else self.store.get_executable(self.key)
+                if exe is None:
+                    with span(ev, "engine.libraries"):
+                        libs = _kernel_libraries(self.device)
+                    with span(ev, "engine.warmup"):
+                        self._warm_up()
+                    if self.store is not None:
+                        self.store.put_executable(self.key, libs)
+            if self.store is not None and not self.store.has_params(self.key):
+                self.store.save_params(self.key, self.params.state_dict())
+            self.warm = True
+        return t.breakdown()
 
     def shutdown(self):
         """Scale to zero: drop device state (keep nothing warm)."""
@@ -311,35 +352,43 @@ class InferenceEngine:
             raise ValueError(f"token ids must lie in [0, {vocab})")
         extras = extras or {}
         self._check_extras(extras)
-        out, stats = generate(self.bundle, self.params, tokens, decode_steps=decode_steps,
-                              extras=extras)
-        self.last_used = time.monotonic()
-        return out, stats
+        return generate(self.bundle, self.params, tokens, decode_steps=decode_steps,
+                        extras=extras, events=self.events)
 
 
 @torch.inference_mode()
 def generate(bundle: registry.ModelBundle, params, tokens: np.ndarray, *,
-             decode_steps: int, extras: Optional[Mapping[str, np.ndarray]] = None
-             ) -> Tuple[np.ndarray, ServeStats]:
+             decode_steps: int, extras: Optional[Mapping[str, np.ndarray]] = None,
+             events: Optional[EventLog] = None) -> Tuple[np.ndarray, ServeStats]:
     """The engine's request loop on any bundle: one prefill, then greedy
-    decode steps, each part timed up to a device synchronise."""
+    decode steps, each part timed up to a device synchronise.  With
+    ``events``, the spans ``engine.h2d``, ``engine.prefill`` (the reading
+    ``prefill_s`` takes) and, a step, ``engine.readback`` (the token's copy
+    to the host, where the host waits on the device) and
+    ``engine.decode_step`` (the call to its return)."""
     stats = ServeStats()
-    batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(bundle.device)}
-    if extras:
-        batch.update({k: torch.as_tensor(v).to(bundle.device) for k, v in extras.items()})
-    t0 = time.perf_counter()
+    with span(events, "engine.h2d"):
+        batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(bundle.device)}
+        if extras:
+            batch.update({k: torch.as_tensor(v).to(bundle.device) for k, v in extras.items()})
+    t0 = time.perf_counter_ns()
     logits, caches, pos = bundle.prefill(params, batch)
     _sync(bundle.device)
-    stats.prefill_s = time.perf_counter() - t0
+    t1 = time.perf_counter_ns()
+    stats.prefill_s = (t1 - t0) / 1e9
+    if events is not None:
+        events.span("engine.prefill", t0, t1)
     out = []
     tok = logits.argmax(-1)
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     for i in range(decode_steps):
-        out.append(tok.to(torch.int32).cpu().numpy())
-        logits, caches = bundle.decode_step(params, caches, tok, pos + i)
+        with span(events, "engine.readback"):
+            out.append(tok.to(torch.int32).cpu().numpy())
+        with span(events, "engine.decode_step"):
+            logits, caches = bundle.decode_step(params, caches, tok, pos + i)
         tok = logits.argmax(-1)
     _sync(bundle.device)
-    stats.decode_s = time.perf_counter() - t0
+    stats.decode_s = (time.perf_counter_ns() - t0) / 1e9
     stats.tokens = decode_steps
     return np.stack(out, axis=1), stats
 

@@ -11,6 +11,13 @@ configured with a :class:`~repro_torch.core.policies.base.PolicySuite`
 router hard-coded).  For concurrent load, trace replay, micro-batching and
 predictive autoscaling use ``repro_torch.fleet.loadgen`` directly; the router
 keeps the one-call-at-a-time API for examples and tests.
+
+With an :class:`~repro_torch.core.events.EventLog` (``events=``) the router
+hands it to the pool, whose cluster kernel emits the lifecycle events, and to
+the engines, and emits its own spans: ``router.invoke`` (arrival to return)
+holds ``router.place`` (scale-to-zero, eviction and placement; counters
+``expired`` and ``evicted``), on a miss the pool's ``pool.start_replica``,
+and ``router.serve`` (the backend's serve).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.costmodel import CostModel
+from repro_torch.core.events import EventLog, span
 from repro_torch.core.lifecycle import Breakdown, FunctionSpec
 from repro_torch.core.metrics import QoSLedger, RequestRecord
 from repro_torch.core.policies.base import PolicySuite, Startup
@@ -45,7 +53,8 @@ class ServerlessRouter:
     def __init__(self, *, ttl_s: float = 30.0, use_snapshots: bool = True,
                  memory_budget_gb: float = 8.0,
                  store: Optional[SnapshotStore] = None,
-                 suite: Optional[PolicySuite] = None, device="cuda"):
+                 suite: Optional[PolicySuite] = None, device="cuda",
+                 events: Optional[EventLog] = None):
         self.ttl_s = ttl_s
         self.use_snapshots = use_snapshots
         self.memory_budget_gb = memory_budget_gb
@@ -55,11 +64,13 @@ class ServerlessRouter:
             name="router", keepalive=FixedTTL(ttl_s),
             startup=Startup(snapshot=use_snapshots))
         self.functions: Dict[str, FunctionDef] = {}
-        self.backend = EngineBackend(store=self.store, device=device)
+        self.events = events
+        self.backend = EngineBackend(store=self.store, device=device, events=events)
         self.ledger = QoSLedger()
         self.pool = EnginePool({}, num_workers=1,
                                worker_memory_mb=memory_budget_gb * 1024.0,
-                               backend=self.backend, ledger=self.ledger)
+                               backend=self.backend, ledger=self.ledger,
+                               events=events)
         self.state = self.pool.state          # the shared cluster kernel
         self.autoscaler = Autoscaler(self.suite)
         self._frontend = Frontend()           # empty; satisfies FleetContext
@@ -88,60 +99,72 @@ class ServerlessRouter:
                             self.suite)
 
     # ------------------------------------------------------------------ #
-    def _scale_to_zero(self, now: float):
-        """Lazy TTL enforcement + budget-pressure eviction in policy order."""
+    def _scale_to_zero(self, now: float) -> Tuple[int, int]:
+        """Lazy TTL enforcement + budget-pressure eviction in policy order.
+        Returns (replicas expired, replicas evicted)."""
+        expired = 0
         for c in list(self.state.all_warm_idle()):
             if now >= c.expiry:
                 self.autoscaler.on_expire(c, now, now - c.warm_since)
                 self.state.destroy(c, now)
-        self._reclaim(now, 0.0)
+                expired += 1
+        return expired, self._reclaim(now, 0.0)
 
-    def _reclaim(self, now: float, need_mb: float):
-        """Evict warm replicas in policy order until ``need_mb`` fits."""
+    def _reclaim(self, now: float, need_mb: float) -> int:
+        """Evict warm replicas in policy order until ``need_mb`` fits.
+        Returns the replicas evicted."""
+        evicted = 0
         while self.state.free_mb(0) < need_mb:
             order = self.autoscaler.evict_order(self._ctx(now))
             if not order:
                 break
-            self.state.destroy(order[0], now)
+            self.state.destroy(order[0], now, reason="evict")
+            evicted += 1
+        return evicted
 
     # ------------------------------------------------------------------ #
     def invoke(self, name: str, tokens: Optional[np.ndarray] = None,
                extras=None) -> Tuple[np.ndarray, RequestRecord]:
-        fdef = self.functions[name]
-        arrival = self._now()
-        self.autoscaler.observe_arrival(name, arrival)
-        self._scale_to_zero(arrival)
-        ctx = self._ctx(arrival)
-        breakdown: Optional[Breakdown] = None
-        cold = False
-        c = self.suite.placement.choose_container(name, ctx)
-        if c is not None:
-            replica = self.pool.replica_for(c)
-            self.autoscaler.on_reuse(c, ctx, arrival - c.warm_since)
-        else:
-            cold = True
-            self.autoscaler.on_miss(name, arrival)
-            fn = self.pool.functions[name]
-            self._reclaim(arrival, fn.memory_mb)
-            replica, breakdown = self.pool.start_replica(
-                name, 0, arrival, from_snapshot=self.use_snapshots)
-        c = replica.container
-        self.state.acquire(c, arrival)
-        if tokens is None:
-            tokens = np.ones((fdef.batch, fdef.max_seq), np.int32)
-        start = self._now()
-        out, _ = self.backend.serve(replica, tokens,
-                                    decode_steps=fdef.decode_steps,
-                                    extras=extras)
-        end = self._now()
-        self.state.release_slot(c, end)
-        self.state.to_idle(c, end)
-        self.state.set_expiry(c, end + self.autoscaler.ttl_for(
-            c, self._ctx(end)))
-        self.state.record_execution(c, [(name, arrival)], start, end,
-                                    cold=cold, bd=breakdown)
-        rec = self.ledger.records[-1]
-        return out, rec
+        with span(self.events, "router.invoke"):
+            fdef = self.functions[name]
+            arrival = self._now()
+            with span(self.events, "router.place") as sp:
+                self.autoscaler.observe_arrival(name, arrival)
+                expired, evicted = self._scale_to_zero(arrival)
+                ctx = self._ctx(arrival)
+                c = self.suite.placement.choose_container(name, ctx)
+                if c is not None:
+                    replica = self.pool.replica_for(c)
+                    self.autoscaler.on_reuse(c, ctx, arrival - c.warm_since)
+                else:
+                    self.autoscaler.on_miss(name, arrival)
+                    evicted += self._reclaim(arrival, self.pool.functions[name].memory_mb)
+                sp.count(expired=expired, evicted=evicted)
+            breakdown: Optional[Breakdown] = None
+            cold = c is None
+            if cold:
+                replica, breakdown = self.pool.start_replica(
+                    name, 0, arrival, from_snapshot=self.use_snapshots)
+            c = replica.container
+            self.state.acquire(c, arrival)
+            if tokens is None:
+                tokens = np.ones((fdef.batch, fdef.max_seq), np.int32)
+            start = self._now()
+            with span(self.events, "router.serve"):
+                out, _ = self.backend.serve(replica, tokens,
+                                            decode_steps=fdef.decode_steps,
+                                            extras=extras)
+            end = self._now()
+            # the execution is recorded before the slot is released, so the
+            # kernel's events keep their time order (exec_start at ``start``)
+            self.state.record_execution(c, [(name, arrival)], start, end,
+                                        cold=cold, bd=breakdown)
+            rec = self.ledger.records[-1]
+            self.state.release_slot(c, end)
+            self.state.to_idle(c, end)
+            self.state.set_expiry(c, end + self.autoscaler.ttl_for(
+                c, self._ctx(end)))
+            return out, rec
 
     def summary(self) -> Dict[str, float]:
         self.ledger.horizon = self._now()

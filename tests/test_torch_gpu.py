@@ -1097,3 +1097,47 @@ def test_smoke_engine_at_batch_eight_matches_batch_one_on_card(cuda, arch):
             want = run(one, {k: v[r:r + 1] for k, v in batch.items()}, fed[r:r + 1])
             np.testing.assert_allclose(got[r].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-4,
                                        atol=1e-4, err_msg=f"row {r}")
+
+
+def test_cold_start_spans_on_card(cuda, monkeypatch):
+    """On the card a cold start's log holds ``engine.build_check`` (no
+    library compiled once they are built) and ``engine.deps_load`` with the
+    allocator's new segments; the phase spans are the ``Breakdown``'s
+    readings, and a request with the log synchronises as often as one
+    without it."""
+    from repro_torch.core.events import EventLog, validate_events
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import InferenceEngine
+
+    _build.build()
+    log = EventLog()
+    eng = InferenceEngine("granite-3-2b", smoke=True, max_seq=32, store=None, device="cuda",
+                          events=log)
+    bd = eng.cold_start()
+    spans = {e["name"]: e for e in log if e["kind"] == "span"}
+    assert spans["engine.build_check"]["n"] == {"built": 0}
+    outer = spans["engine.cold_start"]
+    for name in ("engine.build_check", "engine.provision", "engine.deps_load",
+                 "engine.code_init"):
+        assert outer["start_ns"] <= spans[name]["start_ns"] <= spans[name]["end_ns"] \
+            <= outer["end_ns"]
+    for phase, seconds in bd.seconds.items():
+        s = spans[f"engine.{phase.value}"]
+        assert (s["end_ns"] - s["start_ns"]) / 1e9 == seconds
+    # the allocator's block for a tensor may hold up to 1 MiB it did not split off
+    n, tensors = spans["engine.deps_load"]["n"], len(eng.params.state_dict())
+    assert eng.package_bytes() <= n["bytes"] <= eng.package_bytes() + 2**20 * tensors
+    assert n["segments"] >= 0
+    assert validate_events(log) == []
+
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: syncs.append(1) or real(*a, **k))
+    tokens = np.ones((1, 32), np.int32)
+    with_log, _ = eng.serve(tokens, decode_steps=4)
+    counted = len(syncs)
+    eng.events = None
+    without, _ = eng.serve(tokens, decode_steps=4)
+    assert len(syncs) == 2 * counted
+    np.testing.assert_array_equal(with_log, without)
